@@ -1,0 +1,224 @@
+"""Command-line renderer, port of ``kajo_tpu/cli.py``.
+
+    python -m kajo_tpu_torch.cli [-w W] [-h H] [--spp N] [--passes N] [SCENE.json]
+
+Renders on ``--device`` (default ``cuda``) through the fused pass of
+``ops/megakernel.py``: the CUDA kernel on a GPU; with ``--device cpu`` its
+plain PyTorch twin. ``--device cuda`` on a machine without a GPU exits
+non-zero; it never renders on the CPU instead. No scene file renders the
+built-in test scene. Per pass it prints elapsed time, samples/pixel and
+samples/s; it saves the PNG at the end, optionally every N passes, and can
+checkpoint and resume the progressive accumulation.
+
+Pass p uses the u32 seed ``ops.rng.pass_seed(--seed, p)``, so a resumed or
+batched render traces the same passes as an uninterrupted one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kajo-torch",
+        description="path tracer on PyTorch + a CUDA megakernel",
+        add_help=False,
+    )
+    p.add_argument("--help", action="help", help="show this help")
+    p.add_argument("-w", dest="width", type=int, default=640, help="image width (640)")
+    p.add_argument("-h", dest="height", type=int, default=480, help="image height (480)")
+    p.add_argument(
+        "-r",
+        dest="renderer",
+        default="torch",
+        choices=["torch", "cpu", "gl"],
+        help="renderer backend (torch; cpu selects the parity engine and gl the "
+        "GL estimator, neither of which is ported yet)",
+    )
+    p.add_argument("scene", nargs="?", default=None, help="scene JSON (default: built-in test scene)")
+    p.add_argument("--device", default="cuda", help="torch device to render on (cuda)")
+    p.add_argument("--spp", type=int, default=32, help="samples/pixel/pass (32, kajo default)")
+    p.add_argument(
+        "--batch",
+        type=int,
+        default=0,
+        help="passes summed on the device per host readback (0 = auto: 4)",
+    )
+    p.add_argument("--passes", type=int, default=8, help="progressive passes (8; 0 = run until Ctrl-C)")
+    p.add_argument("--depth", type=int, default=8, help="max path depth (8)")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--epsilon", type=float, default=1e-3, help="secondary-ray surface offset")
+    p.add_argument("--full-mis", action="store_true", help="unbiased full balance-heuristic MIS")
+    p.add_argument(
+        "--regen-threshold",
+        type=float,
+        default=None,
+        help="cull lanes when throughput max drops below this (the reference GL "
+        "backend's biased occupancy trick; default 0 = exact)",
+    )
+    p.add_argument("--exact-spp", action="store_true", help="disable kajo's 25/32 spp quirk")
+    p.add_argument(
+        "--one-light-nee",
+        action="store_true",
+        help="sample ONE uniformly chosen light per vertex (x L) instead of every light",
+    )
+    p.add_argument("--no-direct", action="store_true", help="disable NEE (pure BSDF path tracing)")
+    p.add_argument("-o", "--out", default="out.png", help="output PNG (out.png)")
+    p.add_argument("--save-every", type=int, default=0, help="also save PNG every N passes")
+    p.add_argument("--checkpoint", default=None, help="progressive-state checkpoint file (.npz)")
+    p.add_argument("--resume", action="store_true", help="resume from --checkpoint if present")
+    p.add_argument("--preview", action="store_true", help="live ANSI preview in the terminal")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+
+    import torch
+
+    from kajo_tpu.utils.format import format_si
+    from kajo_tpu.utils.image import save_png
+    from kajo_tpu.utils.keys import CTRL_S, ESC, key_poller
+
+    from .models.engine import render_pass_engine, select_engine
+    from .models.integrator import RenderConfig
+    from .ops.megakernel import render_passes_megakernel
+    from .ops.rng import pass_seed
+    from .scene import parser
+    from .scene.testscene import build_test_scene
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(
+            f"error: --device {args.device} but PyTorch sees no CUDA device; "
+            "pass --device cpu to render with the plain PyTorch version",
+            file=sys.stderr,
+        )
+        return 2
+
+    if args.scene:
+        scene = parser.load(args.scene, args.width / args.height, device)
+    else:
+        # the reference hardcodes a 4:3 projection for its built-in scene
+        scene = build_test_scene(4.0 / 3.0, device)
+
+    regen = args.regen_threshold
+    if regen is None:
+        regen = 0.01 if args.renderer == "gl" else 0.0
+    config = RenderConfig(
+        max_depth=args.depth,
+        surface_epsilon=args.epsilon,
+        direct_lighting=not args.no_direct,
+        full_mis=args.full_mis,
+        kajo_spp_quirk=not args.exact_spp,
+        regen_threshold=regen,
+        one_light_nee=args.one_light_nee,
+        gl_semantics=args.renderer == "gl",
+    )
+    grid = max(int(args.spp**0.5), 1)
+    eff_spp = grid * grid
+
+    # fields a checkpoint must match to be blended into this run's
+    # accumulation (a different scene/seed/config is a different render)
+    ck_meta = dict(
+        scene=str(args.scene or "<builtin>"),
+        width=args.width,
+        height=args.height,
+        spp=args.spp,
+        seed=args.seed,
+        config=repr(config),
+    )
+    total = np.zeros((args.height, args.width, 4), np.float32)
+    start_pass = 0
+    if args.resume and args.checkpoint:
+        try:
+            ck = np.load(args.checkpoint)
+            mismatched = [k for k, v in ck_meta.items() if k in ck and str(ck[k]) != str(v)]
+            if mismatched:
+                print(
+                    f"checkpoint {args.checkpoint} does not match this run "
+                    f"({', '.join(f'{k}: {ck[k]} != {ck_meta[k]}' for k in mismatched)}); "
+                    "starting fresh",
+                    file=sys.stderr,
+                )
+            else:
+                total = ck["total"]
+                start_pass = int(ck["passes"])
+                print(f"resumed from {args.checkpoint} at pass {start_pass}", file=sys.stderr)
+        except FileNotFoundError:
+            pass
+
+    engine = select_engine(scene, "parity" if args.renderer == "cpu" else "auto")
+    print(f"engine: {engine} on {device}", file=sys.stderr)
+    n_passes = args.passes if args.passes > 0 else 1 << 30
+    batch = args.batch if args.batch > 0 else 4
+    t0 = time.time()
+    done = start_pass
+    first = True
+    last_save_bucket = start_pass // args.save_every if args.save_every else 0
+
+    try:
+        with key_poller() as poll_keys:
+            p = start_pass
+            while p < start_pass + n_passes:
+                t_pass = time.time()
+                nb = min(batch, start_pass + n_passes - p)
+                if nb > 1:
+                    pass_img = render_passes_megakernel(
+                        scene, args.seed, p, args.width, args.height, args.spp, nb, config
+                    )
+                else:
+                    pass_img = render_pass_engine(
+                        engine, scene, pass_seed(args.seed, p), args.width, args.height, args.spp, config
+                    )
+                total += pass_img.cpu().numpy()
+                done = p + nb
+                p = done
+                pass_samples = nb * args.width * args.height * eff_spp
+                now = time.time()
+                rate = pass_samples / max(now - t_pass, 1e-9)
+                print(
+                    f"pass {done}: {args.width}x{args.height}, {now - t0:.1f}s, "
+                    f"{done * eff_spp} samples/pixel, {format_si(rate)} samples/s"
+                    + (" (incl. warm-up)" if first else ""),
+                    file=sys.stderr,
+                )
+                first = False
+                if args.preview:
+                    from kajo_tpu.utils.preview import show
+
+                    show(
+                        total / done,
+                        f"pass {done}  {args.width}x{args.height}  {now - t0:.1f}s  "
+                        f"{done * eff_spp} spp  {format_si(rate)} samples/s",
+                    )
+                # bucket-based periodic save: a batch advances several passes
+                if args.save_every and done // args.save_every > last_save_bucket:
+                    last_save_bucket = done // args.save_every
+                    save_png(args.out, total / done)
+                if args.checkpoint:
+                    np.savez(args.checkpoint, total=total, passes=done, **ck_meta)
+                # interactive keys: s / Ctrl-S saves, ESC ends the render
+                pressed = poll_keys()
+                if any(c in ("s", "S", CTRL_S) for c in pressed):
+                    save_png(args.out, total / done)
+                    print(f"saved {args.out} (keypress)", file=sys.stderr)
+                if ESC in pressed:
+                    print("ESC: stopping", file=sys.stderr)
+                    break
+    except KeyboardInterrupt:
+        print("interrupted, saving", file=sys.stderr)
+
+    if done > 0:
+        save_png(args.out, total / done)
+        print(f"saved {args.out}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

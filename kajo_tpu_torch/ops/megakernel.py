@@ -1,0 +1,765 @@
+"""The fused path-tracing pass: a hand-written CUDA kernel and its plain
+PyTorch twin.
+
+Port of ``kajo_tpu/ops/pallas/megakernel.py``: ``_build_kernel`` (the Pallas
+kernel, forward only) becomes ``csrc/megakernel.cu``, and ``_pack_scene``,
+``supports``, ``render_pass_megakernel`` and ``render_passes_megakernel``
+keep their roles. The whole regenerating path-trace loop of one lane runs in
+one place: stratified camera ray, nearest hit over planes and spheres (rigid
+4-float or general 23-float records), Russian roulette, the 4-BSDF lottery,
+NEE over all lights or one, the deferred MIS weight, emission and
+background. The PCG4D stream (lane, sample, salt, seed) is the JAX kernel's,
+so for the same u32 seed the two packages trace the same paths; only ulps of
+transcendentals differ.
+
+The wrappers dispatch on the device of the scene's tensors: a CPU scene runs
+:func:`render_pass_megakernel_plain`, the same lane loop vectorised over
+lanes with masks (as the Pallas body is); a CUDA scene launches the kernel,
+or raises. Nothing falls back from CUDA to the plain version.
+``kernel_launches`` counts the kernel's launches.
+
+The plain version divides by 0-d tensors on the scene's device rather than
+by Python numbers: PyTorch's CUDA division by a host scalar multiplies by
+its reciprocal, which would round differently from the kernel and from the
+JAX reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..models.integrator import RenderConfig
+from ..scene.types import Scene
+from .geometry import PreparedScene, prepare_scene
+from .rng import pass_seed, uniforms4
+
+MAX_KERNEL_OBJECTS = 512
+FLT_EPSILON = 1.1920928955078125e-07
+BIG = 3.0e38
+PI = float(np.float32(np.pi))
+CAM_SALT = 0x7FFFFFFF
+
+# packed-buffer record sizes
+_PL = 8    # plane: nrow4, det, normal3
+_SP = 4    # rigid sphere: cx, cy, cz, r2
+_SPG = 23  # general sphere: inv3 row-major (9), invt (3), r2, det, fwd3 row-major (9)
+_MA = 14   # material: diffuse3, specular3, emission3, transparency3, exp, ior
+_LI = 8    # light: cx, cy, cz, radius, er, eg, eb, obj_id
+
+kernel_launches = 0
+
+
+def pack_scene(prep: PreparedScene) -> torch.Tensor:
+    """Flatten the prepared scene into one f32 vector [F], the layout of the
+    JAX ``_pack_scene``: planes (P x 8) | spheres (S x 4 rigid, or S x 23) |
+    materials (K x 14) | lights (L x 8) | background (3) | camera (12:
+    origin, p1, du, dv)."""
+    parts = []
+    p = prep.plane_nrow.shape[0]
+    if p:
+        parts.append(torch.cat([prep.plane_nrow, prep.plane_det[:, None], prep.plane_normal], 1))
+    s = prep.sphere_center.shape[0]
+    if s and prep.rigid:
+        parts.append(torch.cat([prep.sphere_center, prep.sphere_radius2[:, None]], 1))
+    elif s:
+        parts.append(
+            torch.cat(
+                [
+                    prep.sphere_inv3.reshape(s, 9),
+                    prep.sphere_invt,
+                    prep.sphere_radius2[:, None],
+                    prep.sphere_det[:, None],
+                    prep.sphere_fwd3.reshape(s, 9),
+                ],
+                1,
+            )
+        )
+    m = prep.materials
+    parts.append(
+        torch.cat(
+            [
+                m.diffuse[:, :3],
+                m.specular[:, :3],
+                m.emission[:, :3],
+                m.transparency[:, :3],
+                m.specular_exponent[:, None],
+                m.refractive_index[:, None],
+            ],
+            1,
+        )
+    )
+    if prep.light_obj.shape[0]:
+        parts.append(
+            torch.cat(
+                [
+                    prep.light_center,
+                    prep.light_radius[:, None],
+                    prep.light_emission[:, :3],
+                    prep.light_obj[:, None].to(torch.float32),
+                ],
+                1,
+            )
+        )
+    cam = prep.camera
+    parts += [prep.background[:3], cam.origin, cam.p1, cam.du, cam.dv]
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in parts]).contiguous()
+
+
+def supports(scene: Scene) -> bool:
+    """Rigid and general (scaled/sheared) transforms, 1..512 objects."""
+    return bool(0 < scene.num_objects <= MAX_KERNEL_OBJECTS)
+
+
+class MegaParams(ctypes.Structure):
+    """Runtime parameters of one pass; mirrors ``MegaParams`` in
+    ``csrc/megakernel.cu`` field for field (all 4-byte fields)."""
+
+    _fields_ = [
+        ("seed", ctypes.c_uint32),
+        ("lane0", ctypes.c_int32),
+        ("n_lanes", ctypes.c_int32),
+        ("width", ctypes.c_int32),
+        ("height", ctypes.c_int32),
+        ("grid_n", ctypes.c_int32),
+        ("eff", ctypes.c_int32),
+        ("n_planes", ctypes.c_int32),
+        ("n_spheres", ctypes.c_int32),
+        ("n_lights", ctypes.c_int32),
+        ("rigid", ctypes.c_int32),
+        ("max_depth", ctypes.c_int32),
+        ("eps", ctypes.c_float),
+        ("emit_after_scatter", ctypes.c_int32),
+        ("nee_on", ctypes.c_int32),
+        ("one_light", ctypes.c_int32),
+        ("ncalls", ctypes.c_int32),
+        ("full_mis", ctypes.c_int32),
+        ("regen_threshold", ctypes.c_float),
+    ]
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaPass:
+    """What a pass needs besides its seed; shared by the kernel and the
+    plain version."""
+
+    packed: torch.Tensor
+    width: int
+    height: int
+    spp: int
+    grid_n: int
+    eff: int
+    n_planes: int
+    n_spheres: int
+    n_lights: int
+    rigid: bool
+    lane0: int
+    config: RenderConfig
+
+    @property
+    def n_lanes(self) -> int:
+        return self.width * self.height - self.lane0
+
+    @property
+    def divisor(self) -> float:
+        """kajo divides by spp while taking eff = floor(sqrt(spp))² samples."""
+        return float(self.spp if self.config.kajo_spp_quirk else self.eff)
+
+    @property
+    def nee_on(self) -> bool:
+        return bool(self.config.direct_lighting and self.n_lights > 0)
+
+    @property
+    def emit_after_scatter(self) -> bool:
+        """Whether emission still counts after a scattering bounce: with NEE
+        on, only under full MIS (kajo parity drops it)."""
+        return bool((not self.config.direct_lighting) or self.config.full_mis)
+
+    @property
+    def one_light(self) -> bool:
+        # one-of-L light sampling uses the same uniform budget as all-lights
+        # for L > 1, so the PCG4D stream layout is unchanged
+        return bool(self.config.one_light_nee and self.n_lights > 1)
+
+    @property
+    def ncalls(self) -> int:
+        """PCG4D calls per bounce: us[0] RR, us[1] transmit, us[2] diffuse
+        vs specular, us[3..4] continuation, then 3 per light (all-lights)
+        or us[5] select + us[6..8] sample (one-light)."""
+        return -(-max(5 + 3 * self.n_lights, 9 if self.one_light else 0) // 4)
+
+    def params(self, seed: int) -> MegaParams:
+        c = self.config
+        return MegaParams(
+            seed=seed & 0xFFFFFFFF,
+            lane0=self.lane0,
+            n_lanes=self.n_lanes,
+            width=self.width,
+            height=self.height,
+            grid_n=self.grid_n,
+            eff=self.eff,
+            n_planes=self.n_planes,
+            n_spheres=self.n_spheres,
+            n_lights=self.n_lights,
+            rigid=int(self.rigid),
+            max_depth=c.max_depth,
+            eps=c.surface_epsilon,
+            emit_after_scatter=int(self.emit_after_scatter),
+            nee_on=int(self.nee_on),
+            one_light=int(self.one_light),
+            ncalls=self.ncalls,
+            full_mis=int(c.full_mis),
+            regen_threshold=c.regen_threshold,
+        )
+
+
+def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0) -> MegaPass:
+    if config.gl_semantics:
+        raise ValueError(
+            "gl_semantics is implemented by the wavefront/parity engines, not the "
+            "fused megakernel; the port brings them with the big-scene slice (ROADMAP Queue 1)"
+        )
+    if not supports(scene):
+        raise ValueError(
+            f"the megakernel takes 1..{MAX_KERNEL_OBJECTS} objects, got {scene.num_objects}"
+        )
+    if not 0 <= lane0 < width * height:
+        raise ValueError(f"lane0 {lane0} outside the image's {width * height} lanes")
+    grid_n = max(int(spp**0.5), 1)
+    prep = prepare_scene(scene)
+    return MegaPass(
+        packed=pack_scene(prep),
+        width=width,
+        height=height,
+        spp=spp,
+        grid_n=grid_n,
+        eff=grid_n * grid_n,
+        n_planes=scene.num_planes,
+        n_spheres=scene.num_spheres,
+        n_lights=scene.num_lights,
+        rigid=prep.rigid,
+        lane0=lane0,
+        config=config,
+    )
+
+
+def _image(ps: MegaPass, sums: torch.Tensor) -> torch.Tensor:
+    """[3, n_lanes] RGB sums -> [H, W, 4] image divided by ``ps.divisor``,
+    alpha 1; the pixels before lane0 stay 0."""
+    img = torch.zeros((ps.width * ps.height, 4), dtype=torch.float32, device=sums.device)
+    img[ps.lane0 :, :3] = sums.T / sums.new_tensor(ps.divisor)
+    img[:, 3] = 1.0
+    return img.reshape(ps.height, ps.width, 4)
+
+
+# ------------------------------------------------------------------ CUDA
+def launch_kernel(ps: MegaPass, seed: int) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream -> [3, n_lanes] sums."""
+    global kernel_launches
+    from ._nvcc import load_library
+
+    packed = ps.packed
+    if packed.device.type != "cuda" or packed.dtype != torch.float32 or not packed.is_contiguous():
+        raise ValueError("the CUDA megakernel takes a contiguous float32 scene on a CUDA device")
+    lib = load_library("megakernel.cu")
+    fn = lib.kajo_megakernel
+    fn.argtypes = [ctypes.c_void_p] * 4  # scene, out, params, stream
+    fn.restype = ctypes.c_int
+    out = torch.empty((3, ps.n_lanes), dtype=torch.float32, device=packed.device)
+    params = ps.params(seed)  # read by the C entry before it returns
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = fn(packed.data_ptr(), out.data_ptr(), ctypes.addressof(params), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    kernel_launches += 1
+    return out
+
+
+def _sums(ps: MegaPass, seed: int) -> torch.Tensor:
+    kind = ps.packed.device.type
+    if kind == "cpu":
+        return trace_lanes_plain(ps, seed)
+    if kind == "cuda":
+        return launch_kernel(ps, seed)
+    raise ValueError(f"no megakernel for device {ps.packed.device}")
+
+
+def render_pass_megakernel(
+    scene: Scene,
+    seed: int,
+    width: int,
+    height: int,
+    spp: int,
+    config: RenderConfig = RenderConfig(),
+    lane0: int = 0,
+) -> torch.Tensor:
+    """One progressive pass -> [H, W, 4] on the scene's device.
+
+    ``seed`` is the u32 pass seed. Lanes ``lane0 .. W*H-1`` are traced
+    (lane = pixel index, row-major); pixels before ``lane0`` stay 0, so a
+    lane-sharded render assembles bit-identically to the whole one."""
+    ps = prepare_pass(scene, width, height, spp, config, lane0)
+    return _image(ps, _sums(ps, seed))
+
+
+def render_pass_megakernel_plain(
+    scene: Scene,
+    seed: int,
+    width: int,
+    height: int,
+    spp: int,
+    config: RenderConfig = RenderConfig(),
+    lane0: int = 0,
+) -> torch.Tensor:
+    """:func:`render_pass_megakernel` computed by the plain PyTorch version
+    on the scene's device (the CUDA kernel's reference)."""
+    ps = prepare_pass(scene, width, height, spp, config, lane0)
+    return _image(ps, trace_lanes_plain(ps, seed))
+
+
+def render_passes_megakernel(
+    scene: Scene,
+    seed: int,
+    pass_offset: int,
+    width: int,
+    height: int,
+    spp: int,
+    n_passes: int,
+    config: RenderConfig = RenderConfig(),
+) -> torch.Tensor:
+    """Sum of ``n_passes`` passes, accumulated on the scene's device; pass i
+    uses the seed ``pass_seed(seed, pass_offset + i)``."""
+    ps = prepare_pass(scene, width, height, spp, config)
+    total = torch.zeros((height, width, 4), dtype=torch.float32, device=scene.device)
+    for i in range(n_passes):
+        total += _image(ps, _sums(ps, pass_seed(seed, pass_offset + i)))
+    return total
+
+
+# ------------------------------------------------ plain PyTorch version
+def _add(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def _sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def _scale(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def _mul(a, b):
+    return (a[0] * b[0], a[1] * b[1], a[2] * b[2])
+
+
+def _dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _cross(a, b):
+    return (
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    )
+
+
+def _where(m, a, b):
+    return tuple(torch.where(m, x, y) for x, y in zip(a, b))
+
+
+def _normalize(a):
+    """Unit vector; 0 for a zero vector."""
+    n2 = _dot(a, a)
+    nz = n2 > 0
+    inv = torch.rsqrt(torch.where(nz, n2, 1.0))
+    return tuple(torch.where(nz, x * inv, 0.0) for x in a)
+
+
+def _reflect(v, n):
+    return _sub(v, _scale(n, 2.0 * _dot(n, v)))
+
+
+def _safe_sqrt(x):
+    return torch.sqrt(torch.clamp_min(x, 0.0))
+
+
+def _safe_pow(x, n):
+    """x**n as exp(n log x); 0 for x <= 0, except 1 when n == 0."""
+    m = x > 0
+    return torch.where(
+        m, torch.exp(n * torch.log(torch.where(m, x, 1.0))), torch.where(n == 0, 1.0, 0.0)
+    )
+
+
+def _sphere_hit_general(rec, o, d):
+    """General-transform sphere hit: object-space stable quadratic with
+    determinant-scaled t; the normal is the object-space hit point rotated
+    by the forward matrix, normalized. -> (t_world, valid, normal)."""
+    ox = rec[0] * o[0] + rec[1] * o[1] + rec[2] * o[2] + rec[9]
+    oy = rec[3] * o[0] + rec[4] * o[1] + rec[5] * o[2] + rec[10]
+    oz = rec[6] * o[0] + rec[7] * o[1] + rec[8] * o[2] + rec[11]
+    dx = rec[0] * d[0] + rec[1] * d[1] + rec[2] * d[2]
+    dy = rec[3] * d[0] + rec[4] * d[1] + rec[5] * d[2]
+    dz = rec[6] * d[0] + rec[7] * d[1] + rec[8] * d[2]
+    r2, det = rec[12], rec[13]
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (dx * ox + dy * oy + dz * oz)
+    cq = ox * ox + oy * oy + oz * oz - r2
+    discr = b * b - 4.0 * a * cq
+    sq = _safe_sqrt(discr)
+    q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
+    t0 = q / torch.where(a == 0, 1.0, a)
+    t1 = cq / torch.where(q == 0, 1.0, q)
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    t_loc = torch.where(lo < 0, hi, lo)
+    t = t_loc * det
+    valid = (discr >= 0) & (hi >= 0) & (a != 0) & (q != 0) & (t >= 0)
+    nl = (ox + dx * t_loc, oy + dy * t_loc, oz + dz * t_loc)
+    n = _normalize(
+        (
+            rec[14] * nl[0] + rec[15] * nl[1] + rec[16] * nl[2],
+            rec[17] * nl[0] + rec[18] * nl[1] + rec[19] * nl[2],
+            rec[20] * nl[0] + rec[21] * nl[1] + rec[22] * nl[2],
+        )
+    )
+    return t, valid, n
+
+
+def trace_lanes_plain(ps: MegaPass, seed: int) -> torch.Tensor:
+    """The kernel's lane loop, vectorised over lanes -> [3, n_lanes] sums.
+
+    Every state update is masked by ``active``, so the lanes that finished
+    their samples keep their sums while the others run on."""
+    cfg = ps.config
+    s = ps.packed
+    dev = s.device
+    P, S, L = ps.n_planes, ps.n_spheres, ps.n_lights
+    spf = _SP if ps.rigid else _SPG
+    off_spheres = P * _PL
+    off_mats = off_spheres + S * spf
+    off_lights = off_mats + (P + S) * _MA
+    off_bg = off_lights + L * _LI
+    off_cam = off_bg + 3
+
+    def const(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    pi, two_pi = const(PI), const(2.0 * PI)
+    fgrid, fw, fh = const(ps.grid_n), const(ps.width), const(ps.height)
+    eps = const(cfg.surface_epsilon)
+    eff = ps.eff
+    # records as lists of 0-d tensors (scalar broadcast in every op)
+    planes = [[s[i * _PL + j] for j in range(_PL)] for i in range(P)]
+    spheres = [[s[off_spheres + i * spf + j] for j in range(spf)] for i in range(S)]
+    sphere_c2 = [c[0] * c[0] + c[1] * c[1] + c[2] * c[2] - c[3] for c in spheres] if ps.rigid else []
+    mat_table = s[off_mats:off_lights].reshape(P + S, _MA)
+    light_table = s[off_lights:off_bg].reshape(L, _LI)
+    lights = [[light_table[i, j] for j in range(_LI)] for i in range(L)]
+    light_ids = light_table[:, 7].to(torch.int64)
+    bg = tuple(s[off_bg + j] for j in range(3))
+    origin0 = tuple(s[off_cam + j] for j in range(3))
+    p1 = tuple(s[off_cam + 3 + j] for j in range(3))
+    du = tuple(s[off_cam + 6 + j] for j in range(3))
+    dv = tuple(s[off_cam + 9 + j] for j in range(3))
+
+    ncalls = ps.ncalls
+
+    lane = torch.arange(ps.lane0, ps.lane0 + ps.n_lanes, dtype=torch.int64, device=dev)
+    seed_t = torch.tensor(seed & 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    px = (lane % ps.width).to(torch.float32)
+    py = (lane // ps.width).to(torch.float32)
+    zf = torch.zeros(lane.shape, dtype=torch.float32, device=dev)
+    zi = torch.zeros(lane.shape, dtype=torch.int64, device=dev)
+
+    def camera_ray(sample):
+        gx = (sample % ps.grid_n).to(torch.float32)
+        gy = (sample // ps.grid_n).to(torch.float32)
+        u1, u2, _, _ = uniforms4(lane, sample, CAM_SALT, seed_t)
+        sx = (px + (gx + u1) / fgrid) / fw
+        sy = ((fh - py) + (gy + u2) / fgrid) / fh
+        d = _normalize(_sub(_add(p1, _add(_scale(du, sx), _scale(dv, sy))), origin0))
+        return tuple(zf + c for c in origin0), d
+
+    def trace(o, d):
+        """Nearest hit over planes then spheres -> (t, obj, normal)."""
+        t_best = zf + BIG
+        obj_best = zi - 1
+        n_best = (zf, zf, zf)
+        for i, r in enumerate(planes):
+            denom = d[0] * r[0] + d[1] * r[1] + d[2] * r[2]
+            onum = o[0] * r[0] + o[1] * r[1] + o[2] * r[2] + r[3]
+            t_loc = -onum / torch.where(denom == 0, 1.0, denom)
+            t = t_loc * r[4]
+            valid = (denom.abs() >= FLT_EPSILON) & (t_loc >= 0) & (t >= 0) & (t < t_best)
+            t_best = torch.where(valid, t, t_best)
+            obj_best = torch.where(valid, i, obj_best)
+            n_best = _where(valid, (r[5], r[6], r[7]), n_best)
+        if not ps.rigid:
+            for i, rec in enumerate(spheres):
+                t, valid, n_new = _sphere_hit_general(rec, o, d)
+                valid = valid & (t < t_best)
+                t_best = torch.where(valid, t, t_best)
+                obj_best = torch.where(valid, P + i, obj_best)
+                n_best = _where(valid, n_new, n_best)
+            return t_best, obj_best, n_best
+        d_dot_o = _dot(d, o)
+        o2 = _dot(o, o)
+        for i, (cx, cy, cz, _r2) in enumerate(spheres):
+            d_dot_c = d[0] * cx + d[1] * cy + d[2] * cz
+            o_dot_c = o[0] * cx + o[1] * cy + o[2] * cz
+            b = 2.0 * (d_dot_o - d_dot_c)
+            cq = o2 - 2.0 * o_dot_c + sphere_c2[i]
+            discr = b * b - 4.0 * cq
+            sq = _safe_sqrt(discr)
+            q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
+            t1 = cq / torch.where(q == 0, 1.0, q)
+            lo = torch.minimum(q, t1)
+            hi = torch.maximum(q, t1)
+            t = torch.where(lo < 0, hi, lo)
+            valid = (discr >= 0) & (hi >= 0) & (q != 0) & (t >= 0) & (t < t_best)
+            t_best = torch.where(valid, t, t_best)
+            obj_best = torch.where(valid, P + i, obj_best)
+            n_best = _where(valid, _normalize(_sub(_add(o, _scale(d, t)), (cx, cy, cz))), n_best)
+        return t_best, obj_best, n_best
+
+    def tangent_frame(n):
+        """Permutation-trick frame, for planes and spheres alike."""
+        smallest = torch.minimum(n[2], torch.minimum(n[0], n[1]))
+        mx = n[0] == smallest
+        my = n[1] == smallest
+        t = _where(mx, (zf, -n[2], n[1]), _where(my, (-n[2], zf, n[0]), (-n[1], n[0], zf)))
+        flat = n[1].abs() < 0.9
+        up = (torch.where(flat, 0.0, 1.0), torch.where(flat, 1.0, 0.0), zf)
+        t = _where(_dot(t, t) < 1e-12, _cross(n, up), t)
+        t = _normalize(t)
+        return t, _cross(n, t)
+
+    def solid_angle(dist, rad):
+        x = torch.clamp(rad / torch.clamp_min(dist, 1e-30), 0.0, 1.0)
+        # x²/(1+sqrt(1-x²)) == 1-sqrt(1-x²) without the cancellation that
+        # rounds Ω to 0 for far-grazing x
+        omega = two_pi * (x * x) / (1.0 + _safe_sqrt(1.0 - x * x))
+        return torch.where(dist < rad, 4.0 * PI, omega)
+
+    def light_pdf_from(pos, prev_obj, hit_obj):
+        pdf = zf
+        for r, obj_id in zip(lights, light_ids):
+            delta = _sub((r[0], r[1], r[2]), pos)
+            dist = _safe_sqrt(_dot(delta, delta))
+            ok = (hit_obj == obj_id) & (prev_obj != obj_id)
+            pdf = pdf + torch.where(ok, 1.0 / solid_angle(dist, r[3]), 0.0)
+        return pdf
+
+    sample = zi.clone()
+    depth = zi.clone()
+    o, d = camera_ray(sample)
+    t3 = (zf + 1.0, zf + 1.0, zf + 1.0)
+    r3 = (zf, zf, zf)
+    emit = torch.ones_like(zi, dtype=torch.bool)
+    misp = torch.zeros_like(emit)
+    ppdf = zf + 1.0
+    pfcos = (zf + 1.0, zf + 1.0, zf + 1.0)
+    pdelta = torch.zeros_like(emit)
+    prev_obj = zi - 1
+    prev_pos = (zf, zf, zf)
+
+    while True:
+        active = sample < eff
+        if not bool(active.any()):
+            break
+        salt0 = depth * ncalls
+        us = []
+        for i in range(ncalls):
+            us.extend(uniforms4(lane, sample, (salt0 + i) & 0xFFFFFFFF, seed_t))
+
+        t_hit, obj, normal = trace(o, d)
+        was_hit = obj >= 0
+        pos_hit = _add(o, _scale(d, torch.where(was_hit, t_hit, 0.0)))
+
+        # deferred MIS weight from the previous vertex
+        pdf_l_vis = light_pdf_from(prev_pos, prev_obj, obj) if L else zf
+        if cfg.full_mis:
+            pdf_l_vis = torch.where(pdelta, 0.0, pdf_l_vis)
+        denom = pdf_l_vis + ppdf
+        w = 1.0 / torch.where(denom == 0, 1.0, denom)
+        t3 = _where(misp & active, _mul(t3, _scale(pfcos, w)), t3)
+
+        # miss -> background; the path ends below since it did not hit
+        r3 = _where(active & ~was_hit, _add(r3, _mul(t3, bg)), r3)
+        on_path = active & was_hit
+
+        mat = mat_table[obj.clamp_min(0)]
+        md = (mat[:, 0], mat[:, 1], mat[:, 2])
+        ms = (mat[:, 3], mat[:, 4], mat[:, 5])
+        me = (mat[:, 6], mat[:, 7], mat[:, 8])
+        mt = (mat[:, 9], mat[:, 10], mat[:, 11])
+        mexp = mat[:, 12]
+        mior = mat[:, 13]
+
+        # Russian roulette (+ depth limit)
+        p_rr = torch.maximum(
+            torch.maximum(torch.maximum(md[0], ms[0]), torch.maximum(md[1], ms[1])),
+            torch.maximum(
+                torch.maximum(md[2], ms[2]),
+                torch.maximum(torch.maximum(mt[0], mt[1]), mt[2]),
+            ),
+        )
+        cont = (p_rr > 0) & (us[0] <= p_rr)
+        prob_rr = torch.where(cont, p_rr, 1.0 - p_rr)
+        t3 = _where(on_path, _scale(t3, 1.0 / prob_rr), t3)
+        tk = t3
+        emitter = on_path & emit
+        survive = on_path & cont & (depth < cfg.max_depth)
+
+        # BSDF lottery
+        sum_d = md[0] + md[1] + md[2]
+        sum_s = ms[0] + ms[1] + ms[2]
+        sum_t = mt[0] + mt[1] + mt[2]
+        total = sum_d + sum_s + sum_t
+        p_t = torch.where(total > 0, sum_t / torch.where(total == 0, 1.0, total), 0.0)
+        transmit = (p_t > 0) & (us[1] <= p_t)
+        prob_t = torch.where(transmit, p_t, 1.0 - p_t)
+        t3 = _where(survive, _scale(t3, 1.0 / prob_t), t3)
+        dsum = sum_d + sum_s
+        p_d = torch.where(dsum > 0, sum_d / torch.where(dsum == 0, 1.0, dsum), 0.0)
+        diffc = (p_d > 0) & (us[2] <= p_d)
+        prob_d = torch.where(diffc, p_d, 1.0 - p_d)
+        t3 = _where(survive & ~transmit, _scale(t3, 1.0 / prob_d), t3)
+
+        m_trans = survive & transmit
+        m_lam = survive & ~transmit & diffc
+        m_ph = survive & ~transmit & ~diffc & (mexp > 0)
+        m_mir = survive & ~transmit & ~diffc & (mexp <= 0)
+        scatter = m_lam | m_ph | m_mir
+
+        view = d
+        tangent, binormal = tangent_frame(normal)
+        refl = _reflect(view, normal)
+
+        if ps.nee_on:
+
+            def nee_light(r, u1, u2, u3, scale):
+                """One light's NEE term: solid-angle sample, shadow trace,
+                per-light MIS weight scale / (pdf_b + pdf_l)."""
+                rad = r[3]
+                sx_ = rad * torch.sqrt(u1) * torch.cos(two_pi * u2)
+                sy_ = rad * torch.sqrt(u1) * torch.sin(two_pi * u2)
+                sz_ = _safe_sqrt(rad * rad - sx_ * sx_ - sy_ * sy_) * torch.sin(pi * (u3 - 0.5))
+                c = (r[0], r[1], r[2])
+                dl = _normalize(_sub(_add(c, (sx_, sy_, sz_)), pos_hit))
+                delta = _sub(c, pos_hit)
+                dist = _safe_sqrt(_dot(delta, delta))
+                pdf_l = 1.0 / solid_angle(dist, rad)
+                _, st_obj, _ = trace(_add(pos_hit, _scale(dl, eps)), dl)
+                obj_id = r[7].to(torch.int64)
+                visible = st_obj == obj_id
+                not_self = obj != obj_id
+                cosl = _dot(normal, dl)
+                lobe_l = (mexp + 1.0) / two_pi * _safe_pow(torch.clamp_min(_dot(refl, dl), 0.0), mexp)
+                pdf_b_l = torch.where(m_lam, cosl / pi, torch.where(m_ph, lobe_l, 0.0))
+                fcos_l = _where(
+                    m_lam,
+                    _scale(md, torch.clamp_min(cosl, 0.0) / pi),
+                    _where(m_ph, _scale(ms, lobe_l * torch.clamp_min(cosl, 0.0)), (zf, zf, zf)),
+                )
+                ok = visible & not_self & (pdf_b_l != 0) & (pdf_l > 0)
+                wl = torch.where(ok, scale / (pdf_b_l + pdf_l), 0.0)
+                return _scale(_mul(fcos_l, (r[4], r[5], r[6])), wl)
+
+            if ps.one_light:
+                # uniformly pick one light per lane: us[5] selects, us[6..8] sample
+                li_v = torch.clamp_max((us[5] * float(L)).to(torch.int64), L - 1)
+                rec = light_table[li_v]
+                nee = nee_light([rec[:, f] for f in range(_LI)], us[6], us[7], us[8], const(L))
+            else:
+                nee = (zf, zf, zf)
+                one = const(1.0)
+                for li, r in enumerate(lights):
+                    nee = _add(nee, nee_light(r, us[5 + 3 * li], us[6 + 3 * li], us[7 + 3 * li], one))
+            r3 = _where(scatter, _add(r3, _mul(t3, nee)), r3)
+
+        # continuation sample
+        u1, u2 = us[3], us[4]
+        # transmission
+        cos_a = _dot(view, normal)
+        entering = cos_a < 0
+        n_eff = _where(entering, normal, _scale(normal, -1.0))
+        eta = torch.where(entering, 1.0 / mior, mior)
+        ci = _dot(view, n_eff)
+        kk = 1.0 - eta * eta * (1.0 - ci * ci)
+        refr = _sub(_scale(view, eta), _scale(n_eff, eta * ci + _safe_sqrt(kk)))
+        d_trans = _where(kk < 0, _reflect(view, n_eff), refr)
+        # lambert (cosine hemisphere in the surface frame)
+        rl = torch.sqrt(u1)
+        phi = u2 * 2.0 * pi
+        lz = _safe_sqrt(1.0 - u1)
+        d_lam = _add(
+            _add(_scale(tangent, rl * torch.cos(phi)), _scale(binormal, rl * torch.sin(phi))),
+            _scale(normal, lz),
+        )
+        pdf_lam = lz / pi
+        # phong lobe about the reflection
+        uax = _cross((zf, zf, zf + 1.0), refl)
+        degen = _dot(uax, uax) < 1e-12
+        uax = _normalize(_where(degen, _cross((zf, zf + 1.0, zf), refl), uax))
+        vax = _cross(uax, refl)
+        cos_ph = _safe_pow(u1, 1.0 / (mexp + 1.0))
+        sin_ph = _safe_sqrt(1.0 - cos_ph * cos_ph)
+        d_ph = _add(
+            _add(_scale(uax, sin_ph * torch.cos(phi)), _scale(vax, sin_ph * torch.sin(phi))),
+            _scale(refl, cos_ph),
+        )
+        pdf_ph = (mexp + 1.0) / two_pi * _safe_pow(cos_ph, mexp)
+
+        new_d = _where(m_trans, d_trans, _where(m_lam, d_lam, _where(m_ph, d_ph, refl)))
+        pdf_b = torch.where(m_lam, pdf_lam, torch.where(m_ph, pdf_ph, 1.0))
+        cos_nd = _dot(normal, new_d)
+        lobe_c = (mexp + 1.0) / two_pi * _safe_pow(torch.clamp_min(_dot(refl, d_ph), 0.0), mexp)
+        zero3 = (zf, zf, zf)
+        fcos = _where(
+            m_trans,
+            ms,
+            _where(
+                m_lam,
+                _scale(md, torch.clamp_min(cos_nd, 0.0) / pi),
+                _where(
+                    m_ph,
+                    _scale(ms, lobe_c * torch.clamp_min(cos_nd, 0.0)),
+                    _where(cos_nd > 0, ms, zero3),
+                ),
+            ),
+        )
+
+        t3 = _where(m_trans, _mul(t3, fcos), t3)
+        r3 = _where(emitter, _add(r3, _mul(_where(survive, t3, tk), me)), r3)
+        continuing = survive & (m_trans | (pdf_b != 0))
+        if cfg.regen_threshold > 0.0:
+            tmax = torch.maximum(torch.maximum(t3[0], t3[1]), t3[2])
+            continuing = continuing & (tmax >= cfg.regen_threshold)
+
+        # regeneration
+        path_end = active & ~continuing
+        new_sample = torch.where(path_end, sample + 1, sample)
+        o_cam, d_cam = camera_ray(torch.clamp_max(new_sample, eff - 1))
+        o = _where(continuing, _add(pos_hit, _scale(new_d, eps)), _where(path_end, o_cam, o))
+        d = _where(continuing, new_d, _where(path_end, d_cam, d))
+        t3 = _where(path_end, (zf + 1.0, zf + 1.0, zf + 1.0), t3)
+        sc = scatter & ~path_end
+        sample = new_sample
+        depth = torch.where(path_end, 0, depth + 1)
+        emit = path_end | torch.where(scatter, ps.emit_after_scatter, emit)
+        misp = sc
+        ppdf = torch.where(sc, pdf_b, 1.0)
+        pfcos = tuple(torch.where(sc, f, 1.0) for f in fcos)
+        pdelta = m_mir & ~path_end
+        prev_obj = torch.where(sc, obj, -1)
+        prev_pos = tuple(torch.where(sc, p, 0.0) for p in pos_hit)
+
+    return torch.stack(r3)

@@ -1,0 +1,72 @@
+"""Counter-based per-lane RNG (PCG4D hash), port of ``kajo_tpu/ops/rng.py``.
+
+PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering", JCGT 2020)
+maps four u32 counters (lane, sample, salt, seed) to four u32 words. It is
+stateless, so a lane that regenerates mid-pass keeps a deterministic stream,
+and the port's streams equal the JAX package's bit for bit for the same
+counters.
+
+PyTorch on the CPU has no ``uint32`` shift or add, so these functions take
+and return ``int64`` tensors holding u32 values and mask to 32 bits after
+every step. A product of two u32 values wraps in int64, and its low 32 bits
+are still right. The CUDA kernel computes the same hash in ``uint32_t``.
+
+The JAX CLI derives pass seeds from ``jax.random`` keys; the port does not
+reimplement threefry. :func:`pass_seed` hashes (seed, pass index) instead,
+so resuming at pass p needs no generator state. Tests that compare the two
+packages hand both the same u32 seed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_INV24 = 1.0 / (1 << 24)
+# salt of the pass-seed hash: "PASS" in ASCII
+_PASS_SALT = 0x50415353
+
+
+def pcg4d(a, b, c, d):
+    """PCG4D: four u32 counters (int64 tensors or Python ints, broadcastable)
+    -> four u32 words (int64 tensors, or Python ints when all four are)."""
+
+    def lcg(v):
+        if isinstance(v, torch.Tensor):
+            v = v.to(torch.int64)
+        return (v * 1664525 + 1013904223) & _M32
+
+    x, y, z, w = lcg(a), lcg(b), lcg(c), lcg(d)
+    x = (x + y * w) & _M32
+    y = (y + z * x) & _M32
+    z = (z + x * y) & _M32
+    w = (w + y * z) & _M32
+    x = x ^ (x >> 16)
+    y = y ^ (y >> 16)
+    z = z ^ (z >> 16)
+    w = w ^ (w >> 16)
+    x = (x + y * w) & _M32
+    y = (y + z * x) & _M32
+    z = (z + x * y) & _M32
+    w = (w + y * z) & _M32
+    return x, y, z, w
+
+
+def unit(u):
+    """Top 24 bits of a u32 word -> float32 in [0, 1); exact."""
+    return (u >> 8).to(torch.float32) * _INV24
+
+
+def uniforms4(lane, sample, salt, seed):
+    """Four independent U[0,1) fields from integer counters (broadcastable).
+    ``salt`` disambiguates (bounce, purpose); ``seed`` is the pass seed."""
+    return tuple(unit(v) for v in pcg4d(lane, sample, salt, seed))
+
+
+def pass_seed(seed: int, pass_index: int) -> int:
+    """u32 seed of progressive pass ``pass_index`` of a render seeded with
+    ``seed``: the first PCG4D word of (seed, pass_index, "PASS", 0).
+
+    A pure function of its two counters, so pass p of a resumed render gets
+    the same seed as in an uninterrupted one."""
+    return pcg4d(seed & _M32, pass_index & _M32, _PASS_SALT, 0)[0]

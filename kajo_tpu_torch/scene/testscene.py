@@ -1,0 +1,102 @@
+"""Built-in fallback test scene (port of ``kajo_tpu/scene/testscene.py``).
+
+The scene the CLI renders when it gets no scene file: four unit spheres (one
+refractive, one Phong), one small emissive sphere, a ground plane, four walls
+and a ceiling, perspective camera. Colors are already linear.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from kajo_tpu.utils import math3d
+
+from .types import Camera, Scene, make_scene
+
+
+def build_test_scene(aspect_ratio: float = 4.0 / 3.0, device="cpu") -> Scene:
+    colors = np.array(
+        [[1, 1, 1, 1], [0.8, 0.1, 0.1, 1], [0.1, 0.8, 0.1, 1], [0.1, 0.1, 0.8, 1]],
+        np.float32,
+    )
+
+    spheres = []
+    for i in range(4):
+        material = {"ambient": colors[i] * 0.1, "diffuse": colors[i]}
+        if i == 1:
+            material["specular_exponent"] = 20.0
+        if i == 0:
+            material["transparency"] = np.full(4, 0.9, np.float32)
+            material["refractive_index"] = 1.5
+        spheres.append(
+            {
+                "transform": math3d.translate(math3d.identity(), [i * 3 - 2, 0, i * 0.5]),
+                "radius": 1.0,
+                "material": material,
+            }
+        )
+    spheres.append(
+        {
+            "transform": math3d.translate(math3d.identity(), [0, -1.5, 2]),
+            "radius": 0.3,
+            "material": {"emission": np.array([8, 8, 8, 0], np.float32)},
+        }
+    )
+
+    gray = {"diffuse": np.array([0.4, 0.4, 0.4, 1], np.float32)}
+    white = {"diffuse": np.array([1, 1, 1, 1], np.float32)}
+    ident = math3d.identity()
+    planes = [
+        {"transform": math3d.translate(ident, [0, 1, 0]), "material": gray},
+        {"transform": math3d.translate(math3d.rotate(ident, -90, [1, 0, 0]), [0, 2, 0]), "material": white},
+        {"transform": math3d.translate(math3d.rotate(ident, -90, [0, 0, 1]), [0, 10, 0]), "material": white},
+        {"transform": math3d.translate(math3d.rotate(ident, 90, [0, 0, 1]), [0, 8, 0]), "material": white},
+        {"transform": math3d.translate(math3d.rotate(ident, 90, [1, 0, 0]), [0, 6, 0]), "material": white},
+        {"transform": math3d.translate(math3d.rotate(ident, 180, [1, 0, 0]), [0, 2, 0]), "material": white},
+    ]
+
+    camera = Camera(
+        transform=torch.tensor(math3d.look_at([-6, -0.8, 4], [0, 0, 0], [0, -1, 0])),
+        projection=torch.tensor(math3d.perspective(45.0, aspect_ratio, 0.1, 100.0)),
+    )
+    return make_scene(camera, np.array([0, 0, 0, 1], np.float32), planes, spheres, device)
+
+
+
+def two_light_scene_parts(aspect_ratio: float = 1.5):
+    """(camera transform, camera projection, background, planes, spheres) of
+    a small two-light scene, as numpy data for either package's
+    ``make_scene``.
+
+    Two planes, a diffuse and a Phong sphere, and two emissive spheres that
+    also reflect diffusely, so that one-light NEE, the throughput cull
+    (``regen_threshold``) and full MIS each change the image at a few
+    samples per pixel."""
+    ident = math3d.identity()
+    planes = [
+        {"transform": math3d.translate(ident, [0, 1, 0]), "material": {"diffuse": [0.5, 0.5, 0.5, 1]}},
+        {
+            "transform": math3d.translate(math3d.rotate(ident, -90, [1, 0, 0]), [0, 4, 0]),
+            "material": {"diffuse": [0.4, 0.5, 0.6, 1]},
+        },
+    ]
+    spheres = [
+        {"transform": math3d.translate(ident, [-1.2, 0, 0]), "radius": 1.0,
+         "material": {"diffuse": [0.7, 0.3, 0.2, 1]}},
+        {"transform": math3d.translate(ident, [1.2, 0, 0.3]), "radius": 0.9,
+         "material": {"specular": [0.8, 0.8, 0.8, 1], "specular_exponent": 40.0}},
+        {"transform": math3d.translate(ident, [-0.5, -2.0, 1.5]), "radius": 0.35,
+         "material": {"emission": [6, 6, 5, 1], "diffuse": [0.5, 0.5, 0.5, 1]}},
+        {"transform": math3d.translate(ident, [1.5, -1.8, 2.0]), "radius": 0.25,
+         "material": {"emission": [3, 2, 1, 1], "diffuse": [0.3, 0.3, 0.3, 1]}},
+    ]
+    view = math3d.look_at([0, -1.5, 6], [0, 0, 0], [0, -1, 0])
+    projection = math3d.perspective(50.0, aspect_ratio, 0.1, 100.0)
+    return view, projection, np.zeros(4, np.float32), planes, spheres
+
+
+def build_two_light_scene(aspect_ratio: float = 1.5, device="cpu") -> Scene:
+    view, projection, background, planes, spheres = two_light_scene_parts(aspect_ratio)
+    camera = Camera(transform=torch.tensor(view), projection=torch.tensor(projection))
+    return make_scene(camera, background, planes, spheres, device)

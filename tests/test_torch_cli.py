@@ -1,0 +1,91 @@
+"""Port CLI end to end on the CPU, engine selection, and the port's
+independence from jax."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from torch_port import DATA, REPO
+
+from kajo_tpu.utils.image import load_png
+from kajo_tpu_torch import cli
+from kajo_tpu_torch.models.engine import select_engine
+from kajo_tpu_torch.ops import megakernel
+from kajo_tpu_torch.scene import parser
+
+CAUSTICS = os.path.join(DATA, "caustics.json")
+
+
+def run_cli(args):
+    return subprocess.run(
+        [sys.executable, "-m", "kajo_tpu_torch.cli", *args],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+
+
+def test_render_and_save_on_cpu(tmp_path):
+    out = tmp_path / "out.png"
+    r = run_cli(["--device", "cpu", "-w", "16", "-h", "12", "--spp", "4", "--passes", "2",
+                 CAUSTICS, "-o", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    img = load_png(str(out)).astype(np.float64)
+    assert img.shape == (12, 16, 4)
+    assert np.isfinite(img).all() and img[..., :3].mean() > 0
+    assert "samples/s" in r.stderr
+
+
+def test_checkpoint_resume_and_mismatch(tmp_path):
+    out, ck = tmp_path / "c.png", tmp_path / "state.npz"
+    base = ["--device", "cpu", "-w", "12", "-h", "8", "--spp", "4", "-o", str(out),
+            "--checkpoint", str(ck), CAUSTICS]
+    assert cli.main([*base, "--passes", "2"]) == 0
+    assert int(np.load(ck)["passes"]) == 2
+    assert cli.main([*base, "--passes", "1", "--resume"]) == 0
+    assert int(np.load(ck)["passes"]) == 3
+    # a different seed is a different render: the checkpoint is refused
+    r = run_cli([*base, "--passes", "1", "--resume", "--seed", "9"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "does not match" in r.stderr and "resumed" not in r.stderr
+    assert int(np.load(ck)["passes"]) == 1
+
+
+def test_cuda_device_without_gpu_exits_nonzero(tmp_path):
+    out = tmp_path / "never.png"
+    r = run_cli(["--device", "cuda", "-w", "8", "-h", "8", "--passes", "1", CAUSTICS, "-o", str(out)])
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr
+    assert not out.exists()
+
+
+def test_builtin_scene_keeps_kernel_launches_at_zero(tmp_path):
+    before = megakernel.kernel_launches
+    assert cli.main(["--device", "cpu", "-w", "8", "-h", "6", "--spp", "1", "--passes", "1",
+                     "-o", str(tmp_path / "b.png")]) == 0
+    assert megakernel.kernel_launches == before == 0
+
+
+def test_gl_renderer_raises(tmp_path):
+    with pytest.raises(ValueError, match="gl_semantics"):
+        cli.main(["--device", "cpu", "-r", "gl", "-w", "8", "-h", "6", "--passes", "1", CAUSTICS,
+                  "-o", str(tmp_path / "g.png")])
+
+
+@pytest.mark.parametrize("engine,slice_", [("fast", "big-scene"), ("parity", "integrator")])
+def test_unported_engines_name_their_slice(engine, slice_):
+    scene = parser.load(CAUSTICS, 1.0)
+    assert select_engine(scene) == "mega"
+    with pytest.raises(ValueError, match=slice_):
+        select_engine(scene, engine)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import kajo_tpu_torch.cli, kajo_tpu_torch.ops.megakernel, kajo_tpu_torch.models.engine\n"
+        "import kajo_tpu_torch.scene.parser, kajo_tpu_torch.scene.testscene\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-2000:]
