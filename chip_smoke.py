@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port's main path on one CUDA GPU.
+"""Smoke run of the PyTorch port's paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -7,18 +7,51 @@ the CUDA toolkit and PyTorch with CUDA. Phases, each of which ends the run
 with a non-zero exit when it fails:
 
 1. print the card (nvidia-smi name and power limit, torch's device name);
-2. build the CUDA megakernel from kajo_tpu_torch/csrc/ (print ptxas' report);
-3. hold the kernel against its plain PyTorch version on the card, same seed,
-   at 64x48, 4 spp: caustics (rigid record), scaled.json (general record),
-   the two-light scene with one-light NEE, and full MIS. Bars: tone-mapped
-   MAD <= 5e-4 and mean relative gap <= 1%;
-4. render the C++ golden's configuration with the kernel (caustics, 32x24,
-   16 spp, 10 passes): tone-mapped MAD < 0.1, mean relative gap < 0.25;
+2. build every CUDA source of kajo_tpu_torch/csrc/, one nvcc each, all
+   started together (print ptxas' report);
+3. hold the megakernel (K1) against its plain PyTorch version on the card,
+   same seed, at 64x48, 4 spp: caustics (rigid record), scaled.json (general
+   record), the two-light scene with one-light NEE, and full MIS. Bars:
+   tone-mapped MAD <= 5e-4 and mean relative gap <= 1%;
+4. render the C++ golden's configuration with K1 (caustics, 32x24, 16 spp,
+   10 passes): tone-mapped MAD < 0.1, mean relative gap < 0.25;
 5. drive the main path, the CLI's main() at 512x384, 16 spp, 4 passes on
-   data/caustics.json, counting the kernel's launches from 0: one per pass,
-   and a PNG that decodes to finite values with a positive mean;
-6. time the kernel and the plain version at the main path's shape with CUDA
-   events and compare their images there.
+   data/caustics.json, counting K1's launches from 0: one per pass, and a
+   PNG that decodes to finite values with a positive mean;
+6. time K1 and its plain version at the main path's shape with CUDA events
+   and compare their images there;
+7. the big-scene configuration (random_spheres_scene(100_000, seed=0,
+   extent=60), 128x96, 4 spp, depth 2, one-light NEE), rigid and with
+   scale_jitter=0.5: record every K5 (nearest hit) and K6 (occlusion) call
+   of one wavefront pass, from the primary rays of the 128x96 x 4 lanes on,
+   and hold each kernel against its plain version on those inputs: the same
+   winner on every ray, t equal to the bit, the same occlusion on every ray;
+8. drive the big-scene path, the CLI's main() with --procedural 100000 -w
+   128 -h 96 --spp 4 --depth 2 --passes 8, counting K5's and K6's launches
+   from 0: both must launch, and the PNG must decode to finite values with
+   a positive mean;
+9. hold one wavefront pass with K5/K6 against the same pass with their
+   plain versions on the card (bars as in phase 3);
+10. time K5 and K6 per call with CUDA events over the recorded calls, their
+   plain versions, the wavefront pass, and passes/s in batches of 8; print
+   the pass's iterations and rays traced; profile one pass with
+   torch.profiler (device busy share, K5/K6 share, the costliest device
+   operations).
+
+Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
+and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
+peaks), counted on this run's data. A sphere test's ray-independent part
+(cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
+the rest once per ray and sphere. K1 counts the ray-object tests of its
+pass (shading not counted). K5/K6 count, per ray, the 128-sphere blocks it
+needs: those whose box it enters below its final answer (K5: its hit or its
+bound; K6: its cut, or, once occluded, the first block holding an
+occluder); their bytes are the boxes, the records of the blocks some ray
+needs, o and d of the rays with a positive bound, and the bound in and the
+results out.
+
+Every line is flushed as it is printed, and a phase that stalls for
+STALL_S seconds dumps the Python stack of every thread and ends the run.
 
 The last two lines are the kernels' JSON record and {"ok": true, "device":
 ...}. Without a CUDA device it exits non-zero and prints no result.
@@ -26,11 +59,17 @@ The last two lines are the kernels' JSON record and {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
+import io
 import json
+import re
 import struct
 import subprocess
 import sys
+import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +78,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
 MAD_BAR, REL_BAR = 5e-4, 0.01
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores, published
+# FP32 operations of one ray-object test as the kernels write it (compares
+# and selects not counted): per ray and object, and, for the rigid sphere,
+# the ray-independent cx²+cy²+cz²-r² once per sphere
+OPS_PLANE, OPS_SPHERE_RIGID, OPS_SPHERE_GENERAL = 14, 25, 63
+OPS_SPHERE_RIGID_ONCE = 6
+# no phase runs this long; a stall dumps every thread's stack and ends the run
+STALL_S = 600
+BIG_W, BIG_H, BIG_SPP, BIG_D, BIG_N = 128, 96, 4, 2, 100_000  # BASELINE.md config 5
 
 
 def fail(msg: str) -> None:
@@ -71,6 +120,86 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor, mad_bar=MAD_BAR, 
     if not ok:
         fail(label)
     return max_abs
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed(fn, reps: int) -> float:
+    """ms per call of fn() over reps calls, with CUDA events."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def profile_device(fn) -> dict:
+    """Run fn() once under torch.profiler -> host wall ms, device busy ms
+    (the union of the intervals of every kernel and copy on the card), and
+    device ms and launches per kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        ms, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for s, t in sorted(spans):
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, per_name=per_name)
+
+
+def blocks_entered(o, d, t_final, boxes, rays_per_chunk=4096) -> torch.Tensor:
+    """Per ray and packed block, whether the ray enters the block's box
+    below ``t_final`` (the slab test of csrc/stream_trace.cu) -> bool [N, B]:
+    the blocks any block-culled scan of these boxes must test."""
+    from kajo_tpu_torch.ops.stream_trace import _slab
+
+    out = []
+    for r0 in range(0, o.shape[0], rays_per_chunk):
+        rays = slice(r0, r0 + rays_per_chunk)
+        t_enter, entered = _slab(o[rays], d[rays], boxes)
+        out.append(entered & (t_enter * boxes[:, 6] < t_final[rays, None]))
+    return torch.cat(out)
+
+
+def first_occluder_block(rigid, o, d, t_cut, excl, packed, boxes) -> torch.Tensor:
+    """Per ray, the first packed block (in scan order) that holds a sphere
+    other than ``excl`` hit strictly below the ray's live cut -> int64 [N],
+    -1 for a ray nothing occludes: the plain K6 scan, keeping the block."""
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    first = torch.full(t_cut.shape, -1, dtype=torch.int64, device=t_cut.device)
+    t_best = t_cut.clone()
+
+    def visit(rays, blk, t, valid, entered, t_enter_det):
+        may = entered & (t_enter_det < t_best[rays])
+        cols = torch.arange(blk * st.BLOCK, (blk + 1) * st.BLOCK, dtype=torch.int32, device=t.device)
+        hit = may & (valid & (t < t_best[rays][:, None]) & (cols[None, :] != excl[rays][:, None])).any(1)
+        first[rays] = torch.where(hit & (first[rays] < 0), blk, first[rays])
+        t_best[rays] = torch.where(hit, 0.0, t_best[rays])
+
+    st._block_scan(rigid, o, d, packed, boxes, visit)
+    return first
 
 
 def read_png(path: Path) -> np.ndarray:
@@ -119,32 +248,95 @@ def read_png(path: Path) -> np.ndarray:
     return np.array(rows, np.uint8).reshape(h, w, 4)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("error: chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
+def record_stream_calls(fn):
+    """Run fn() with every K5/K6 launch recorded -> (fn's result, [(kind,
+    args)]) in call order; the kernels still run."""
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    calls, nearest, occluded = [], st.launch_nearest, st.launch_occluded
+
+    def rec_nearest(*args):
+        calls.append(("nearest", args))
+        return nearest(*args)
+
+    def rec_occluded(*args):
+        calls.append(("occluded", args))
+        return occluded(*args)
+
+    st.launch_nearest, st.launch_occluded = rec_nearest, rec_occluded
+    try:
+        return fn(), calls
+    finally:
+        st.launch_nearest, st.launch_occluded = nearest, occluded
+
+
+@contextlib.contextmanager
+def plain_stream_trace():
+    """Route the CUDA trace's K5/K6 calls to their plain versions on the card."""
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    nearest, occluded = st.launch_nearest, st.launch_occluded
+    st.launch_nearest, st.launch_occluded = st.nearest_sphere_plain, st.occluded_sphere_plain
+    try:
+        yield
+    finally:
+        st.launch_nearest, st.launch_occluded = nearest, occluded
+
+
+def kernel_vs_plain(kind, args):
+    """Launch the kernel and its plain version (the same arguments) on one
+    recorded call -> (kernel out, plain out, plain winners or None, equal
+    to the bit)."""
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    if kind == "nearest":
+        (t_k, i_k), (t_p, i_p) = st.launch_nearest(*args), st.nearest_sphere_plain(*args)
+        torch.cuda.synchronize()
+        return t_k, t_p, i_p, torch.equal(i_k, i_p) and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    t_k, t_p = st.launch_occluded(*args), st.occluded_sphere_plain(*args)
+    torch.cuda.synchronize()
+    return t_k, t_p, None, torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+
+
+def call_bound(kind, args, t_final):
+    """(bytes, FP32 operations) one K5/K6 call must move and do on these
+    inputs; see the module docstring."""
+    if kind == "nearest":
+        rigid, o, d, bound_, packed, boxes = args
+        needed = blocks_entered(o, d, t_final, boxes)
+        per_live_ray, per_ray = 24, 4 + 4 + 4  # o, d; bound in, t and idx out
+    else:
+        rigid, o, d, bound_, excl, packed, boxes = args
+        first = first_occluder_block(rigid, o, d, bound_, excl, packed, boxes)
+        # an unoccluded ray must test every block it enters below its cut,
+        # an occluded one the block of its first occluder
+        needed = blocks_entered(o, d, bound_, boxes) & (first < 0)[:, None]
+        rows = torch.nonzero(first >= 0).squeeze(1)
+        needed[rows, first[rows]] = True
+        per_live_ray, per_ray = 24 + 4, 4 + 4  # o, d, excl; cut in, bound out
+    live = bound_ > 0
+    needed &= live[:, None]
+    touched = int(needed.any(0).sum())  # blocks some ray needs
+    fields = packed.shape[1]
+    n_bytes = (boxes.numel() * 4 if bool(live.any()) else 0) + touched * 128 * fields * 4
+    n_bytes += int(live.sum()) * per_live_ray + o.shape[0] * per_ray
+    if rigid:
+        n_ops = float(needed.sum()) * 128 * OPS_SPHERE_RIGID + touched * 128 * OPS_SPHERE_RIGID_ONCE
+    else:
+        n_ops = float(needed.sum()) * 128 * OPS_SPHERE_GENERAL
+    return n_bytes, n_ops
+
+
+def megakernel_phases(dev, card: str) -> dict:
+    """Phases 3-6 (K1) -> K1's record for the kernels line."""
     from kajo_tpu_torch import cli
     from kajo_tpu_torch.models.integrator import RenderConfig
-    from kajo_tpu_torch.ops import _nvcc, megakernel
+    from kajo_tpu_torch.ops import megakernel
     from kajo_tpu_torch.scene import parser
     from kajo_tpu_torch.scene.testscene import build_two_light_scene
 
-    dev = torch.device("cuda")
     caustics = str(ROOT / "data" / "caustics.json")
-    card = nvidia_smi()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-
-    # 2. build
-    megakernel_lib = "megakernel.cu"
-    _nvcc.load_library(megakernel_lib)
-    log = _nvcc.library_path(megakernel_lib).with_suffix(".log")
-    print("built", _nvcc.library_path(megakernel_lib).relative_to(ROOT))
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
-
-    # 3. kernel vs plain on the card
+    # 3. K1 vs plain on the card
     cases = [
         ("caustics 64x48 4spp", parser.load(caustics, 64 / 48, dev), RenderConfig()),
         ("scaled.json 64x48 4spp", parser.load(str(ROOT / "data" / "scaled.json"), 64 / 48, dev), RenderConfig()),
@@ -171,63 +363,249 @@ def main() -> int:
     passes = 4
     megakernel.kernel_launches = 0
     rc = cli.main(["-w", "512", "-h", "384", "--spp", "16", "--passes", str(passes), caustics, "-o", str(png)])
-    launches = megakernel.kernel_launches
-    print(f"main path: cli rc={rc}, kernel launches {launches} for {passes} passes")
-    if rc != 0 or launches != passes:
+    mega_launches = megakernel.kernel_launches
+    print(f"main path: cli rc={rc}, kernel launches {mega_launches} for {passes} passes")
+    if rc != 0 or mega_launches != passes:
         fail("the CLI's main path did not run one kernel launch per pass")
     pixels = read_png(png).astype(np.float64)
     print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
     if pixels.shape != (384, 512, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
         fail("the main path's PNG")
 
-    # 6. timing and comparison at the main path's shape
+    # 6. K1 timing and comparison at the main path's shape
     w, h, spp = 512, 384, 16
     ps = megakernel.prepare_pass(parser.load(caustics, w / h, dev), w, h, spp, RenderConfig())
     seed = 99
-    plain = megakernel.trace_lanes_plain(ps, seed)  # warm-up
+    k1_stats = {}
+    plain = megakernel.trace_lanes_plain(ps, seed, k1_stats)  # warm-up, counting the rays
     kern = megakernel.launch_kernel(ps, seed)
     torch.cuda.synchronize()
-
-    def timed(fn, reps):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn(ps, seed)
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
-    plain_ms = timed(megakernel.trace_lanes_plain, 1)
-    ms = timed(megakernel.launch_kernel, 20)
-    ms2 = timed(megakernel.launch_kernel, 20)
-    plain_ms2 = timed(megakernel.trace_lanes_plain, 1)
+    plain_ms = timed(lambda: megakernel.trace_lanes_plain(ps, seed), 1)
+    ms = timed(lambda: megakernel.launch_kernel(ps, seed), 20)
+    ms2 = timed(lambda: megakernel.launch_kernel(ps, seed), 20)
+    plain_ms2 = timed(lambda: megakernel.trace_lanes_plain(ps, seed), 1)
     samples = w * h * ps.eff
     print(f"timing caustics {w}x{h} {spp}spp on {card}: kernel {ms:.3f} / {ms2:.3f} ms per pass "
           f"({samples / (min(ms, ms2) / 1e3):.4g} samples/s), plain PyTorch {plain_ms:.1f} / {plain_ms2:.1f} ms "
           f"({samples / (min(plain_ms, plain_ms2) / 1e3):.4g} samples/s)")
-    max_abs = compare(
+    k1_max_abs = compare(
         f"kernel vs plain caustics {w}x{h} {spp}spp",
         kern.T.reshape(h, w, 3) / ps.divisor,
         plain.T.reshape(h, w, 3) / ps.divisor,
     )
+    per_ray = ps.n_planes * OPS_PLANE + ps.n_spheres * (OPS_SPHERE_RIGID if ps.rigid else OPS_SPHERE_GENERAL)
+    once = ps.n_spheres * OPS_SPHERE_RIGID_ONCE if ps.rigid else 0
+    k1_bound = bound(ps.packed.numel() * 4 + 12 * ps.n_lanes,
+                     (k1_stats["rays"] + k1_stats["shadow_rays"]) * per_ray + once)
+    print(f"K1 bound: {k1_stats['rays']} path rays + {k1_stats['shadow_rays']} shadow rays x "
+          f"{per_ray} FP32 ops of ray-object tests + {once} -> {k1_bound[0]:.5f} ms ({k1_bound[1]})")
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    record = {
-        "kernels": [
-            {
-                "name": "megakernel",
-                "route": "cuda",
-                "source": "kajo_tpu_torch/csrc/megakernel.cu",
-                "replaces": "kajo_tpu/ops/pallas/megakernel.py:297",
-                "launches": launches,
-                "max_abs_err": max_abs,
-                "ms": min(ms, ms2),
-                "plain_ms": min(plain_ms, plain_ms2),
-            }
-        ]
+    return {
+        "name": "megakernel",
+        "route": "cuda",
+        "source": "kajo_tpu_torch/csrc/megakernel.cu",
+        "replaces": "kajo_tpu/ops/pallas/megakernel.py:297",
+        "launches": mega_launches,
+        "max_abs_err": k1_max_abs,
+        "ms": min(ms, ms2),
+        "plain_ms": min(plain_ms, plain_ms2),
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,  # no single PyTorch call computes a path-traced pass
     }
+
+
+def hold_stream_calls(dev, jitter: float):
+    """Phase 7 for one scene: record every K5/K6 call of one config-5 pass
+    and hold each against its plain version -> (scene, calls, kernel
+    results, the largest |kernel - plain| per kind)."""
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import geometry
+    from kajo_tpu_torch.scene.procedural import random_spheres_scene
+
+    big_cfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+    label = "rigid" if jitter == 0.0 else f"scale_jitter={jitter}"
+    t0 = time.time()
+    scene = random_spheres_scene(BIG_N, seed=0, extent=60.0, aspect_ratio=BIG_W / BIG_H, scale_jitter=jitter,
+                                 device=dev)
+    prep = geometry.prepare_scene(scene)
+    torch.cuda.synchronize()
+    print(f"config 5 {label}: {BIG_N} spheres built and packed in {time.time() - t0:.1f} s: "
+          f"packed {tuple(prep.stream_packed.shape)}, {prep.stream_boxes.shape[0]} blocks")
+    t0 = time.time()
+    _, calls = record_stream_calls(lambda: wavefront.render_pass_fast(scene, 5, BIG_W, BIG_H, BIG_SPP, big_cfg))
+    torch.cuda.synchronize()
+    print(f"config 5 {label}: one pass with {len(calls)} K5/K6 calls recorded in {time.time() - t0:.1f} s")
+    # rigid scenes take shadows from K6; non-rigid ones from K5
+    kinds = [k for k, _ in calls]
+    if not ({"nearest", "occluded"} if jitter == 0.0 else {"nearest"}) <= set(kinds):
+        fail(f"config 5 {label}: the pass did not launch its kernels ({kinds})")
+    worst = {"nearest": 0.0, "occluded": 0.0}
+    results = []
+    for i, (kind, args) in enumerate(calls):
+        t0 = time.time()
+        out_k, out_p, idx, ok = kernel_vs_plain(kind, args)
+        diff = (out_k - out_p).abs().max().item()
+        worst[kind] = max(worst[kind], diff)
+        extra = f", {int((idx >= 0).sum())} hits" if idx is not None else f", {int((out_p == 0).sum())} zero bounds"
+        print(f"config 5 {label} call {i} {kind}: {args[1].shape[0]} rays{extra}; kernel == plain on every ray "
+              f"(bits): {ok}, max |diff| {diff:.3e} ({time.time() - t0:.1f} s)")
+        if not ok:
+            fail(f"config 5 {label}: {kind} kernel and plain version differ on call {i}")
+        results.append(out_k)
+    return scene, calls, results, worst
+
+
+def big_scene_phases(dev, card: str) -> list:
+    """Phases 7-10 (K5, K6) -> their records for the kernels line."""
+    from kajo_tpu_torch import cli
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import geometry, megakernel
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    # 7. K5/K6 vs plain on every call of one big-scene wavefront pass
+    recorded = {}
+    for jitter in (0.0, 0.5):
+        recorded["rigid" if jitter == 0.0 else f"scale_jitter={jitter}"] = hold_stream_calls(dev, jitter)
+
+    big_cfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+
+    # 8. the big-scene path, through the CLI
+    OUT.mkdir(parents=True, exist_ok=True)
+    png = OUT / f"procedural_{BIG_N}_{BIG_W}x{BIG_H}.png"
+    st.nearest_launches = st.occluded_launches = 0
+    megakernel.kernel_launches = 0
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--procedural", str(BIG_N), "-w", str(BIG_W), "-h", str(BIG_H), "--spp", str(BIG_SPP),
+                       "--depth", str(BIG_D), "--passes", "8", "-o", str(png)])
+    cli_s = time.time() - t0
+    k5_launches, k6_launches = st.nearest_launches, st.occluded_launches
+    sys.stderr.write(err.getvalue())
+    rates = re.findall(r"([0-9.]+[KMG]?) samples/s", err.getvalue())
+    print(f"big-scene path: cli rc={rc} in {cli_s:.1f} s (scene build included), engine line "
+          f"{[ln for ln in err.getvalue().splitlines() if ln.startswith('engine')]}, CLI samples/s {rates}, "
+          f"K5 launches {k5_launches}, K6 launches {k6_launches}, K1 launches {megakernel.kernel_launches}")
+    if rc != 0 or k5_launches == 0 or k6_launches == 0 or "engine: fast" not in err.getvalue():
+        fail("the big-scene path did not run through engine fast with K5 and K6")
+    pixels = read_png(png).astype(np.float64)
+    print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
+    if pixels.shape != (BIG_H, BIG_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
+        fail("the big-scene path's PNG")
+
+    # 9. one wavefront pass with K5/K6 against the same pass with the plain versions
+    scene = recorded["rigid"][0]
+    got = wavefront.render_pass_fast(scene, 7, BIG_W, BIG_H, BIG_SPP, big_cfg)
+    with plain_stream_trace():
+        want = wavefront.render_pass_fast(scene, 7, BIG_W, BIG_H, BIG_SPP, big_cfg)
+    torch.cuda.synchronize()
+    compare(f"wavefront pass K5/K6 vs plain, config 5 {BIG_W}x{BIG_H} {BIG_SPP}spp", got, want)
+
+    # 10. timing on the recorded rigid calls, the pass, and batches of 8
+    _, calls, results, _ = recorded["rigid"]
+    stream_rows = {}
+    for kind, launch, plain_fn in (
+        ("nearest", st.launch_nearest, st.nearest_sphere_plain),
+        ("occluded", st.launch_occluded, st.occluded_sphere_plain),
+    ):
+        sel = [(args, out) for (k, args), out in zip(calls, results) if k == kind]
+        k_ms = [timed(lambda a=args: launch(*a), 20) for args, _ in sel]
+        p_ms = [timed(lambda a=args: plain_fn(*a), 1) for args, _ in sel]
+        bounds = [call_bound(kind, args, out) for args, out in sel]
+        b_ms = [bound(b, o) for b, o in bounds]
+        for i, ((args, _), km, pm, (bm, by)) in enumerate(zip(sel, k_ms, p_ms, b_ms)):
+            print(f"timing {kind} call {i} ({args[1].shape[0]} rays) on {card}: kernel {km:.4f} ms, "
+                  f"plain {pm:.2f} ms, bound {bm:.6f} ms ({by}: {bounds[i][0]:.4g} B, {bounds[i][1]:.4g} FP32 ops), "
+                  f"{km / bm:.0f}x the bound")
+        n_calls = len(sel)
+        mean_b = sum(b for b, _ in b_ms) / n_calls
+        by = bound(sum(b for b, _ in bounds), sum(o for _, o in bounds))[1]
+        stream_rows[kind] = dict(ms=sum(k_ms) / n_calls, plain_ms=sum(p_ms) / n_calls, bound_ms=mean_b, bound_by=by,
+                                 calls_per_pass=n_calls)
+        print(f"{kind}: {n_calls} calls per pass; mean per call kernel {stream_rows[kind]['ms']:.4f} ms, "
+              f"plain {stream_rows[kind]['plain_ms']:.2f} ms, bound {mean_b:.6f} ms ({by})")
+
+    pass_ms = []
+    for _ in range(3):
+        t0 = time.time()
+        wavefront.render_pass_fast(scene, 11, BIG_W, BIG_H, BIG_SPP, big_cfg)
+        torch.cuda.synchronize()
+        pass_ms.append((time.time() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wavefront.render_passes_fast(scene, 0, 8, BIG_W, BIG_H, BIG_SPP, 8, big_cfg)
+    torch.cuda.synchronize()
+    batch_s = time.time() - t0
+    _, iters, rays = wavefront.render_pass_fast_stats(scene, 11, BIG_W, BIG_H, BIG_SPP, big_cfg)
+    big_samples = BIG_W * BIG_H * BIG_SPP
+    print(f"timing config 5 wavefront pass on {card}: {', '.join(f'{x:.1f}' for x in pass_ms)} ms "
+          f"(host clock, scene prepared each pass); 8 passes in {batch_s * 1e3:.1f} ms = "
+          f"{8 * big_samples / batch_s:.4g} samples/s; iterations {iters}, rays traced {rays:.0f}")
+    prep_ms = timed(lambda: geometry.prepare_scene(scene), 3)
+    prof = profile_device(lambda: wavefront.render_pass_fast(scene, 11, BIG_W, BIG_H, BIG_SPP, big_cfg))
+    per_name = prof["per_name"]
+    stream_ms = sum(ms for name, (ms, _) in per_name.items() if "stream_kernel" in name)
+    n_kernels = sum(n for _, n in per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"profile config 5 pass on {card}: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.2f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), {n_kernels} device operations, K5+K6 {stream_ms:.2f} ms; "
+          f"prepare_scene {prep_ms:.2f} ms (CUDA events); top: "
+          + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, (ms, n) in top))
+
+    # no single PyTorch call computes a nearest-sphere or any-hit trace
+    worst = {k: max(v[3][k] for v in recorded.values()) for k in ("nearest", "occluded")}
+    return [
+        {
+            "name": f"stream_{kind}",
+            "route": "cuda",
+            "source": "kajo_tpu_torch/csrc/stream_trace.cu",
+            "replaces": "kajo_tpu/ops/pallas/stream_trace.py:967",
+            "launches": launches,
+            "max_abs_err": worst[kind],
+            **{k: stream_rows[kind][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+        }
+        for kind, launches in (("nearest", k5_launches), ("occluded", k6_launches))
+    ]
+
+
+def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)
+    if not torch.cuda.is_available():
+        print("error: chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from kajo_tpu_torch.ops import _nvcc
+
+    dev = torch.device("cuda")
+    card = nvidia_smi()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    # 2. build every kernel, one nvcc per source, all started together
+    sources = ("megakernel.cu", "stream_trace.cu")
+    t0 = time.time()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_nvcc.load_library, sources))
+    print(f"built {len(sources)} kernels in {time.time() - t0:.1f} s")
+    for source in sources:
+        print("built", _nvcc.library_path(source).relative_to(ROOT))
+        for line in _nvcc.library_path(source).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("ptxas:", line.strip())
+
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    k1 = megakernel_phases(dev, card)
+    faulthandler.dump_traceback_later(STALL_S, exit=True)  # restart the clock for the big scene
+    kernels = [k1, *big_scene_phases(dev, card)]
+    faulthandler.cancel_dump_traceback_later()
+
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))
+    if bad:
+        fail(f"modules of jax or kajo_tpu were imported: {bad[:10]}")
+    record = {"kernels": kernels}
     print(json.dumps(record))
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}

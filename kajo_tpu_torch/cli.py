@@ -1,14 +1,19 @@
 """Command-line renderer, port of ``kajo_tpu/cli.py``.
 
     python -m kajo_tpu_torch.cli [-w W] [-h H] [--spp N] [--passes N] [SCENE.json]
+    python -m kajo_tpu_torch.cli --procedural 100000 -w 128 -h 96 --spp 4 --depth 2
 
-Renders on ``--device`` (default ``cuda``) through the fused pass of
-``ops/megakernel.py``: the CUDA kernel on a GPU; with ``--device cpu`` its
-plain PyTorch twin. ``--device cuda`` on a machine without a GPU exits
-non-zero; it never renders on the CPU instead. No scene file renders the
-built-in test scene. Per pass it prints elapsed time, samples/pixel and
-samples/s; it saves the PNG at the end, optionally every N passes, and can
-checkpoint and resume the progressive accumulation.
+Renders on ``--device`` (default ``cuda``) with engine ``--engine`` (default
+``auto``: the fused megakernel of ``ops/megakernel.py`` for scenes of up to
+512 objects, else the regenerating wavefront of ``models/wavefront.py``,
+which traces scenes above 1024 spheres through the streaming kernels of
+``ops/stream_trace.py``). On a GPU the CUDA kernels run; with ``--device
+cpu`` their plain PyTorch versions. ``--device cuda`` on a machine without a
+GPU exits non-zero; it never renders on the CPU instead. No scene file
+renders the built-in test scene; ``--procedural N`` the N-sphere field of
+``scene/procedural.py``. Per batch of passes it prints elapsed time,
+samples/pixel and samples/s; it saves the PNG at the end, optionally every N
+passes, and can checkpoint and resume the progressive accumulation.
 
 Pass p uses the u32 seed ``ops.rng.pass_seed(--seed, p)``, so a resumed or
 batched render traces the same passes as an uninterrupted one.
@@ -37,17 +42,39 @@ def build_argparser() -> argparse.ArgumentParser:
         dest="renderer",
         default="torch",
         choices=["torch", "cpu", "gl"],
-        help="renderer backend (torch; cpu selects the parity engine and gl the "
-        "GL estimator, neither of which is ported yet)",
+        help="renderer backend (torch; gl renders the GL backend's estimator through "
+        "the wavefront; cpu selects the parity engine, which is not ported yet)",
     )
     p.add_argument("scene", nargs="?", default=None, help="scene JSON (default: built-in test scene)")
+    p.add_argument(
+        "--procedural",
+        type=int,
+        default=0,
+        metavar="N",
+        help="render the N-sphere procedural field instead of a scene file (the big-scene config)",
+    )
+    p.add_argument(
+        "--scale-jitter",
+        type=float,
+        default=0.0,
+        help="with --procedural: per-sphere rotations and uniform scales in [1/(1+j), 1+j] "
+        "(the non-rigid sphere record)",
+    )
     p.add_argument("--device", default="cuda", help="torch device to render on (cuda)")
+    p.add_argument(
+        "--engine",
+        default="auto",
+        choices=["auto", "mega", "fast"],
+        help="auto = mega where the megakernel takes the scene, else fast; mega = the fused "
+        "megakernel; fast = the regenerating wavefront",
+    )
     p.add_argument("--spp", type=int, default=32, help="samples/pixel/pass (32, kajo default)")
     p.add_argument(
         "--batch",
         type=int,
         default=0,
-        help="passes summed on the device per host readback (0 = auto: 4)",
+        help="passes summed on the device per host readback (0 = auto: 8 for streamed "
+        "scenes on the fast engine, else 4)",
     )
     p.add_argument("--passes", type=int, default=8, help="progressive passes (8; 0 = run until Ctrl-C)")
     p.add_argument("--depth", type=int, default=8, help="max path depth (8)")
@@ -64,8 +91,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--exact-spp", action="store_true", help="disable kajo's 25/32 spp quirk")
     p.add_argument(
         "--one-light-nee",
-        action="store_true",
-        help="sample ONE uniformly chosen light per vertex (x L) instead of every light",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="sample ONE uniformly chosen light per vertex (x L) instead of every light; "
+        "default on for --procedural >= 10000, off otherwise",
     )
     p.add_argument("--no-direct", action="store_true", help="disable NEE (pure BSDF path tracing)")
     p.add_argument("-o", "--out", default="out.png", help="output PNG (out.png)")
@@ -81,16 +110,18 @@ def main(argv=None) -> int:
 
     import torch
 
-    from kajo_tpu.utils.format import format_si
-    from kajo_tpu.utils.image import save_png
-    from kajo_tpu.utils.keys import CTRL_S, ESC, key_poller
-
     from .models.engine import render_pass_engine, select_engine
     from .models.integrator import RenderConfig
+    from .models.wavefront import render_passes_fast
+    from .ops.geometry import STREAM_THRESHOLD
     from .ops.megakernel import render_passes_megakernel
     from .ops.rng import pass_seed
     from .scene import parser
+    from .scene.procedural import random_spheres_scene
     from .scene.testscene import build_test_scene
+    from .utils.format import format_si
+    from .utils.image import save_png
+    from .utils.keys import CTRL_S, ESC, key_poller
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -101,7 +132,18 @@ def main(argv=None) -> int:
         )
         return 2
 
-    if args.scene:
+    if args.procedural > 0 and args.scene:
+        print("error: give either a scene file or --procedural, not both", file=sys.stderr)
+        return 2
+    if args.procedural > 0:
+        scene = random_spheres_scene(
+            args.procedural,
+            seed=args.seed,
+            aspect_ratio=args.width / args.height,
+            scale_jitter=args.scale_jitter,
+            device=device,
+        )
+    elif args.scene:
         scene = parser.load(args.scene, args.width / args.height, device)
     else:
         # the reference hardcodes a 4:3 projection for its built-in scene
@@ -110,6 +152,13 @@ def main(argv=None) -> int:
     regen = args.regen_threshold
     if regen is None:
         regen = 0.01 if args.renderer == "gl" else 0.0
+    one_light = args.one_light_nee
+    if one_light is None:
+        # big-scene default: one shadow ray per vertex instead of one per light
+        one_light = args.procedural >= 10_000
+        if one_light:
+            print("one-light NEE enabled for the big-scene config (--no-one-light-nee for all lights)",
+                  file=sys.stderr)
     config = RenderConfig(
         max_depth=args.depth,
         surface_epsilon=args.epsilon,
@@ -117,7 +166,7 @@ def main(argv=None) -> int:
         full_mis=args.full_mis,
         kajo_spp_quirk=not args.exact_spp,
         regen_threshold=regen,
-        one_light_nee=args.one_light_nee,
+        one_light_nee=one_light,
         gl_semantics=args.renderer == "gl",
     )
     grid = max(int(args.spp**0.5), 1)
@@ -126,7 +175,11 @@ def main(argv=None) -> int:
     # fields a checkpoint must match to be blended into this run's
     # accumulation (a different scene/seed/config is a different render)
     ck_meta = dict(
-        scene=str(args.scene or "<builtin>"),
+        scene=(
+            f"<procedural:{args.procedural}:{args.scale_jitter}>"
+            if args.procedural > 0
+            else str(args.scene or "<builtin>")
+        ),
         width=args.width,
         height=args.height,
         spp=args.spp,
@@ -153,10 +206,18 @@ def main(argv=None) -> int:
         except FileNotFoundError:
             pass
 
-    engine = select_engine(scene, "parity" if args.renderer == "cpu" else "auto")
+    requested = args.engine
+    if requested == "auto" and args.renderer == "cpu":
+        requested = "parity"
+    elif requested == "auto" and args.renderer == "gl":
+        requested = "fast"  # the megakernel has no GL estimator
+    engine = select_engine(scene, requested)
     print(f"engine: {engine} on {device}", file=sys.stderr)
     n_passes = args.passes if args.passes > 0 else 1 << 30
-    batch = args.batch if args.batch > 0 else 4
+    if args.batch > 0:
+        batch = args.batch
+    else:
+        batch = 8 if engine == "fast" and scene.num_spheres > STREAM_THRESHOLD else 4
     t0 = time.time()
     done = start_pass
     first = True
@@ -169,9 +230,8 @@ def main(argv=None) -> int:
                 t_pass = time.time()
                 nb = min(batch, start_pass + n_passes - p)
                 if nb > 1:
-                    pass_img = render_passes_megakernel(
-                        scene, args.seed, p, args.width, args.height, args.spp, nb, config
-                    )
+                    render_passes = render_passes_megakernel if engine == "mega" else render_passes_fast
+                    pass_img = render_passes(scene, args.seed, p, args.width, args.height, args.spp, nb, config)
                 else:
                     pass_img = render_pass_engine(
                         engine, scene, pass_seed(args.seed, p), args.width, args.height, args.spp, config
@@ -190,7 +250,7 @@ def main(argv=None) -> int:
                 )
                 first = False
                 if args.preview:
-                    from kajo_tpu.utils.preview import show
+                    from .utils.preview import show
 
                     show(
                         total / done,

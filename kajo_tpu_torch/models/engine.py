@@ -1,9 +1,15 @@
 """Engine selection, port of ``kajo_tpu/models/engine.py``.
 
-The port has one engine so far, ``mega``: the fused pass of
-``ops/megakernel.py``, on the scene's device (the CUDA kernel on a GPU, its
-plain PyTorch twin on the CPU). The JAX package's other engines come with
-later slices of the port (ROADMAP Queue 1), and asking for one raises.
+  * ``mega``: the fused pass of ``ops/megakernel.py`` (K1), for scenes of
+    1..512 objects;
+  * ``fast``: the regenerating wavefront of ``models/wavefront.py``, for any
+    scene; above ``geometry.STREAM_THRESHOLD`` spheres it traces through the
+    streaming kernels K5/K6.
+
+``auto`` picks ``mega`` where the megakernel takes the scene, else ``fast``.
+Both run on the scene's device: the CUDA kernels on a GPU, their plain
+PyTorch versions on the CPU. The JAX package's ``parity`` engine comes with
+a later slice of the port, and asking for it raises.
 """
 
 from __future__ import annotations
@@ -11,25 +17,27 @@ from __future__ import annotations
 from ..ops import megakernel
 from ..scene.types import Scene
 from .integrator import RenderConfig
+from .wavefront import render_pass_fast
 
-# engines of the JAX package that the port does not have yet, and the
-# ROADMAP slice that brings each
-_LATER = {
-    "fast": "the big-scene slice (models/wavefront.py + the streaming trace)",
-    "parity": "the integrator slice (models/integrator.py render_pass)",
-}
+ENGINES = ("auto", "mega", "fast")
 
 
 def select_engine(scene: Scene, requested: str = "auto") -> str:
-    if requested in ("auto", "mega"):
+    if requested == "auto":
+        return "mega" if megakernel.supports(scene) else "fast"
+    if requested == "mega":
         if not megakernel.supports(scene):
             raise ValueError(
-                f"the mega engine takes 1..{megakernel.MAX_KERNEL_OBJECTS} objects, this "
-                f"scene has {scene.num_objects}; larger scenes need {_LATER['fast']}"
+                f"the mega engine takes 1..{megakernel.MAX_KERNEL_OBJECTS} objects, this scene has "
+                f"{scene.num_objects}; use the fast engine"
             )
         return "mega"
-    if requested in _LATER:
-        raise ValueError(f"engine {requested!r} is not ported yet: it comes with {_LATER[requested]}")
+    if requested == "fast":
+        return "fast"
+    if requested == "parity":
+        raise ValueError(
+            "engine 'parity' is not ported yet: it comes with the integrator slice (models/integrator.py render_pass)"
+        )
     raise ValueError(f"unknown engine {requested!r}")
 
 
@@ -43,5 +51,6 @@ def render_pass_engine(
     config: RenderConfig = RenderConfig(),
 ):
     """One pass of ``engine`` with u32 pass seed ``seed`` -> [H, W, 4]."""
-    select_engine(scene, engine)  # raises for an engine the port lacks
-    return megakernel.render_pass_megakernel(scene, seed, width, height, spp, config)
+    if select_engine(scene, engine) == "mega":
+        return megakernel.render_pass_megakernel(scene, seed, width, height, spp, config)
+    return render_pass_fast(scene, seed, width, height, spp, config)

@@ -219,8 +219,7 @@ class MegaPass:
 def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0) -> MegaPass:
     if config.gl_semantics:
         raise ValueError(
-            "gl_semantics is implemented by the wavefront/parity engines, not the "
-            "fused megakernel; the port brings them with the big-scene slice (ROADMAP Queue 1)"
+            "gl_semantics is implemented by the wavefront (engine fast), not the fused megakernel"
         )
     if not supports(scene):
         raise ValueError(
@@ -432,11 +431,14 @@ def _sphere_hit_general(rec, o, d):
     return t, valid, n
 
 
-def trace_lanes_plain(ps: MegaPass, seed: int) -> torch.Tensor:
+def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> torch.Tensor:
     """The kernel's lane loop, vectorised over lanes -> [3, n_lanes] sums.
 
     Every state update is masked by ``active``, so the lanes that finished
-    their samples keep their sums while the others run on."""
+    their samples keep their sums while the others run on. A ``stats`` dict
+    receives the counts of path rays (one per live lane per iteration) and
+    shadow rays (one per light, or one, per scattering lane) the pass
+    traced; counting reads them back from the device every iteration."""
     cfg = ps.config
     s = ps.packed
     dev = s.device
@@ -638,6 +640,10 @@ def trace_lanes_plain(ps: MegaPass, seed: int) -> torch.Tensor:
         m_ph = survive & ~transmit & ~diffc & (mexp > 0)
         m_mir = survive & ~transmit & ~diffc & (mexp <= 0)
         scatter = m_lam | m_ph | m_mir
+        if stats is not None:
+            stats["rays"] = stats.get("rays", 0) + int(active.sum())
+            shadow = int(scatter.sum()) * ((1 if ps.one_light else L) if ps.nee_on else 0)
+            stats["shadow_rays"] = stats.get("shadow_rays", 0) + shadow
 
         view = d
         tangent, binormal = tangent_frame(normal)

@@ -16,8 +16,10 @@ Port of ``kajo_tpu/scene/parser.py`` (the reference scene DSL):
     numbers are read, the aspect comes from the caller;
   * an objects array dispatching on ``"type": "sphere" | "plane"``.
 
-The matrix math is the JAX package's numpy path (``kajo_tpu.utils.math3d``
-with ``xp=np``), which imports no jax.
+The matrix math is the port's numpy copy of the JAX package's
+(``kajo_tpu_torch.utils.math3d``). The scene goes to ``device``, by default
+the CUDA device; without one the loaders raise unless given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,9 +30,8 @@ import re
 import numpy as np
 import torch
 
-from kajo_tpu.utils import math3d
-
-from .types import Camera, Scene, make_scene
+from ..utils import math3d
+from .types import Camera, Scene, check_device, make_scene
 
 _TRAILING_COMMA = re.compile(r",(\s*[}\]])")
 _BARE_DECIMAL = re.compile(r"(?<=[:\[,\s])(-?)\.(\d)")
@@ -122,7 +123,9 @@ def _parse_material(obj: dict) -> dict:
     }
 
 
-def loads(text: str, aspect_ratio: float, device="cpu") -> Scene:
+def loads(text: str, aspect_ratio: float, device="cuda") -> Scene:
+    """Parse scene JSON text onto ``device``."""
+    check_device(device)
     data = _loads_tolerant(text)
     camera = Camera.default()
     background = np.zeros(4, np.float32)
@@ -146,7 +149,7 @@ def loads(text: str, aspect_ratio: float, device="cpu") -> Scene:
     return make_scene(camera, background, planes, spheres, device)
 
 
-def load(path: str, aspect_ratio: float, device="cpu") -> Scene:
+def load(path: str, aspect_ratio: float, device="cuda") -> Scene:
     """Load a scene file onto ``device``."""
     with open(path, "r") as f:
         return loads(f.read(), aspect_ratio, device)

@@ -2,7 +2,8 @@
 
 The scene the CLI renders when it gets no scene file: four unit spheres (one
 refractive, one Phong), one small emissive sphere, a ground plane, four walls
-and a ceiling, perspective camera. Colors are already linear.
+and a ceiling, perspective camera. Colors are already linear. Both scene
+functions put the scene on ``device``, by default the CUDA device.
 """
 
 from __future__ import annotations
@@ -10,12 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kajo_tpu.utils import math3d
-
+from ..utils import math3d
 from .types import Camera, Scene, make_scene
 
 
-def build_test_scene(aspect_ratio: float = 4.0 / 3.0, device="cpu") -> Scene:
+def build_test_scene(aspect_ratio: float = 4.0 / 3.0, device="cuda") -> Scene:
     colors = np.array(
         [[1, 1, 1, 1], [0.8, 0.1, 0.1, 1], [0.1, 0.8, 0.1, 1], [0.1, 0.1, 0.8, 1]],
         np.float32,
@@ -63,7 +63,6 @@ def build_test_scene(aspect_ratio: float = 4.0 / 3.0, device="cpu") -> Scene:
     return make_scene(camera, np.array([0, 0, 0, 1], np.float32), planes, spheres, device)
 
 
-
 def two_light_scene_parts(aspect_ratio: float = 1.5):
     """(camera transform, camera projection, background, planes, spheres) of
     a small two-light scene, as numpy data for either package's
@@ -96,7 +95,7 @@ def two_light_scene_parts(aspect_ratio: float = 1.5):
     return view, projection, np.zeros(4, np.float32), planes, spheres
 
 
-def build_two_light_scene(aspect_ratio: float = 1.5, device="cpu") -> Scene:
+def build_two_light_scene(aspect_ratio: float = 1.5, device="cuda") -> Scene:
     view, projection, background, planes, spheres = two_light_scene_parts(aspect_ratio)
     camera = Camera(transform=torch.tensor(view), projection=torch.tensor(projection))
     return make_scene(camera, background, planes, spheres, device)

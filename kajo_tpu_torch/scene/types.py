@@ -92,8 +92,22 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def scene_from_numpy(leaves: Mapping[str, Any], device="cpu") -> Scene:
-    """Build a :class:`Scene` on ``device`` from host arrays.
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when it is CUDA and PyTorch sees
+    no CUDA device (the loaders default to ``"cuda"`` and never fall back
+    to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the scene goes to a CUDA device by default, but PyTorch sees none; "
+            "pass device='cpu' to build it on the CPU"
+        )
+    return device
+
+
+def scene_from_numpy(leaves: Mapping[str, Any], device="cuda") -> Scene:
+    """Build a :class:`Scene` on ``device`` (default: the CUDA device) from
+    host arrays.
 
     ``leaves`` is a nested mapping with the field names of
     ``kajo_tpu.scene.types.Scene`` (the shape ``dataclasses.asdict`` gives
@@ -102,6 +116,7 @@ def scene_from_numpy(leaves: Mapping[str, Any], device="cpu") -> Scene:
     ``sphere_radius``, ``materials`` {the seven material fields},
     ``light_indices`` and ``rigid_spheres``. Array leaves may be numpy
     arrays or anything ``np.asarray`` accepts."""
+    device = check_device(device)
     cam = leaves["camera"]
     mats = leaves["materials"]
     return Scene(
@@ -118,7 +133,7 @@ def scene_from_numpy(leaves: Mapping[str, Any], device="cpu") -> Scene:
     )
 
 
-def make_scene(camera, background, planes, spheres, device="cpu") -> Scene:
+def make_scene(camera, background, planes, spheres, device="cuda") -> Scene:
     """Assemble a Scene from per-object dicts (host-side), as
     ``kajo_tpu.scene.types.make_scene`` does.
 
@@ -126,8 +141,10 @@ def make_scene(camera, background, planes, spheres, device="cpu") -> Scene:
     ``planes``: list of dicts {"transform": (4,4), "material": dict}
     ``spheres``: list of dicts {"transform": (4,4), "radius": float, "material": dict}
     Material dict keys: ambient/diffuse/specular/emission/transparency
-    (vec4-like), specular_exponent, refractive_index.
+    (vec4-like), specular_exponent, refractive_index. The scene goes to
+    ``device``, by default the CUDA device (see :func:`check_device`).
     """
+    check_device(device)
     p, s = len(planes), len(spheres)
     z4 = np.zeros((p + s, 4), np.float32)
     mat_arrays = {

@@ -14,6 +14,7 @@ from kajo_tpu_torch import cli
 from kajo_tpu_torch.models.engine import select_engine
 from kajo_tpu_torch.ops import megakernel
 from kajo_tpu_torch.scene import parser
+from kajo_tpu_torch.scene.procedural import random_spheres_scene
 
 CAUSTICS = os.path.join(DATA, "caustics.json")
 
@@ -22,6 +23,7 @@ def run_cli(args):
     return subprocess.run(
         [sys.executable, "-m", "kajo_tpu_torch.cli", *args],
         capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),  # one thread per test process, as in torch_port
     )
 
 
@@ -66,18 +68,46 @@ def test_builtin_scene_keeps_kernel_launches_at_zero(tmp_path):
     assert megakernel.kernel_launches == before == 0
 
 
-def test_gl_renderer_raises(tmp_path):
+def test_gl_renderer_raises(tmp_path, capsys):
+    """-r gl renders the GL estimator through the wavefront; the megakernel,
+    which has no GL estimator, still refuses it."""
     with pytest.raises(ValueError, match="gl_semantics"):
-        cli.main(["--device", "cpu", "-r", "gl", "-w", "8", "-h", "6", "--passes", "1", CAUSTICS,
-                  "-o", str(tmp_path / "g.png")])
+        cli.main(["--device", "cpu", "-r", "gl", "--engine", "mega", "-w", "8", "-h", "6", "--passes", "1",
+                  CAUSTICS, "-o", str(tmp_path / "g.png")])
+    assert cli.main(["--device", "cpu", "-r", "gl", "-w", "8", "-h", "6", "--passes", "1", CAUSTICS,
+                     "-o", str(tmp_path / "g.png")]) == 0
+    assert "engine: fast" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("engine,slice_", [("fast", "big-scene"), ("parity", "integrator")])
+@pytest.mark.parametrize("engine,slice_", [("parity", "integrator")])
 def test_unported_engines_name_their_slice(engine, slice_):
-    scene = parser.load(CAUSTICS, 1.0)
+    scene = parser.load(CAUSTICS, 1.0, device="cpu")
     assert select_engine(scene) == "mega"
     with pytest.raises(ValueError, match=slice_):
         select_engine(scene, engine)
+
+
+def test_auto_engine_takes_fast_above_the_megakernel():
+    small = parser.load(CAUSTICS, 1.0, device="cpu")
+    assert select_engine(small, "fast") == "fast"
+    big = random_spheres_scene(600, seed=1, extent=10.0, device="cpu")
+    assert select_engine(big) == "fast"
+    with pytest.raises(ValueError, match="fast engine"):
+        select_engine(big, "mega")
+
+
+def test_procedural_big_scene_through_the_cli(tmp_path):
+    """--procedural 1200 streams (above 1024 spheres): the fast engine, the
+    plain K5/K6 on the CPU, batches of 8 passes, a finite image."""
+    out = tmp_path / "p.png"
+    r = run_cli(["--device", "cpu", "--procedural", "1200", "-w", "16", "-h", "12", "--spp", "4", "--depth", "2",
+                 "--passes", "2", "-o", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "engine: fast on cpu" in r.stderr and "pass 2:" in r.stderr and "one-light" not in r.stderr
+    img = load_png(str(out)).astype(np.float64)
+    assert img.shape == (12, 16, 4) and np.isfinite(img).all() and img[..., :3].mean() > 0
+    r = run_cli(["--device", "cpu", "--procedural", "5", CAUSTICS, "-o", str(out)])
+    assert r.returncode == 2 and "not both" in r.stderr
 
 
 def test_port_imports_no_jax():
@@ -85,6 +115,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import kajo_tpu_torch.cli, kajo_tpu_torch.ops.megakernel, kajo_tpu_torch.models.engine\n"
         "import kajo_tpu_torch.scene.parser, kajo_tpu_torch.scene.testscene\n"
+        "import kajo_tpu_torch.models.wavefront, kajo_tpu_torch.ops.stream_trace, kajo_tpu_torch.scene.procedural\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=REPO)

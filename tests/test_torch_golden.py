@@ -12,7 +12,7 @@ from kajo_tpu_torch.scene import parser
 
 
 def test_caustics_golden():
-    scene = parser.load(os.path.join(DATA, "caustics.json"), 32 / 24)
+    scene = parser.load(os.path.join(DATA, "caustics.json"), 32 / 24, device="cpu")
     img = render_passes_megakernel(scene, 17, 0, 32, 24, 16, 10).numpy() / 10
     ref = np.fromfile(os.path.join(GOLDENS, "caustics_32x24.raw"), np.float32).reshape(24, 32, 4)
     assert np.isfinite(img).all()

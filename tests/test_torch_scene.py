@@ -22,8 +22,8 @@ ASPECT = 32 / 24
 
 def _both(name):
     if name == "testscene":
-        return jax_build_test_scene(ASPECT), build_test_scene(ASPECT)
-    return jax_scene(name, ASPECT), parser.load(f"{DATA}/{name}", ASPECT)
+        return jax_build_test_scene(ASPECT), build_test_scene(ASPECT, device="cpu")
+    return jax_scene(name, ASPECT), parser.load(f"{DATA}/{name}", ASPECT, device="cpu")
 
 
 def _leaves(scene):

@@ -8,6 +8,7 @@ import os
 
 import jax
 import numpy as np
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from kajo_tpu.models.integrator import RenderConfig as JaxRenderConfig
@@ -22,6 +23,10 @@ from kajo_tpu_torch.scene.types import scene_from_numpy
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data")
 GOLDENS = os.path.join(REPO, "tests", "goldens")
+
+# the tests run one process per core (pytest-xdist): one intra-op thread
+# each keeps PyTorch's thread pools from oversubscribing the cores
+torch.set_num_threads(1)
 
 
 def to_port(jax_scene, device="cpu"):
