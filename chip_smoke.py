@@ -36,14 +36,48 @@ with a non-zero exit when it fails:
    plain versions, the wavefront pass, and passes/s in batches of 8; print
    the pass's iterations and rays traced; profile one pass with
    torch.profiler (device busy share, K5/K6 share, the costliest device
-   operations).
+   operations);
+11. hold the gradient kernels against their plain versions (autodiff of the
+   plain walk) on the card, for K2 (forward mode), K3 (material gradients)
+   and K4 (sphere geometry): at the gradient path's own shape,
+   build_test_scene 128x96, 16 spp, max_depth 4 (timing the plain versions
+   there); at 64x48, 4 spp, max_depth 3 on caustics (rigid), scaled.json
+   (general), the two-light scene with one-light NEE and caustics with full
+   MIS; random_spheres_scene(40, seed=11, extent=10, n_lights=2) (K = 43)
+   for K3, a 200-sphere field for K4, and K4's slot rule on the mirror
+   cluster at max_depth 20. Bars: K2's image equals K1's bit for bit and its
+   tangent is within a relative L2 gap of 1e-4; every field of K3 and K4
+   within 1e-4 max|plain| + 1e-7, and on the mirror cluster, whose
+   gradients span many decades, every sphere's entries within 1e-4 of the
+   sum of their own terms (K2 per sphere and direction); all finite. Print
+   how K4's largest gradient on the cluster grows with max_depth;
+12. drive the gradient path, ``kajo_tpu_torch.inverse_rendering.main`` at
+   128x96, 16 spp, max_depth 4, 100 steps, counting launches from 0: engine
+   mega (sphere transform and albedos) must launch 2 K1 + 2 K3 + 2 K4 per
+   step, engine mega-fwd (the sphere's 3 translation scalars) 6 K2 per step
+   (plus the 3 K1 renders of the target and the two PNGs); every loss
+   finite; the sphere's offset, and under mega the ground's albedo error,
+   smaller at the end than at the start; ms per step and the share of
+   K1/K3/K4 in a mega step and of K2 in a mega-fwd step (CUDA events), and
+   K2/K3/K4 per launch at that shape with their bounds: these go to the
+   kernels line, with the shape;
+13. time K2, K3 and K4 per launch with CUDA events at the main render
+   path's shape, caustics 512x384, 16 spp, with their bounds, and hold K2
+   there (image equal to K1's, tangent gap <= 1e-4); the plain K3 and K4
+   are not run there: their reverse-mode graphs would hold ~2,000 saved
+   tensors of 0.79 MB per iteration over ~80 iterations, more than the
+   card's memory.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
 peaks), counted on this run's data. A sphere test's ray-independent part
 (cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
 the rest once per ray and sphere. K1 counts the ray-object tests of its
-pass (shading not counted). K5/K6 count, per ray, the 128-sphere blocks it
+pass (shading not counted); K2 the same plus the tangent operations of the
+winner's test per path ray (2 per test operation); K3 two walks per sample;
+K4 its discovery walk plus four Dual replays per sphere a sample hits (at
+most 8 non-light ones; lights flagged only by an NEE term are not counted).
+K5/K6 count, per ray, the 128-sphere blocks it
 needs: those whose box it enters below its final answer (K5: its hit or its
 bound; K6: its cut, or, once occluded, the first block holding an
 occluder); their bytes are the boxes, the records of the blocks some ray
@@ -60,6 +94,7 @@ The last two lines are the kernels' JSON record and {"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import faulthandler
 import io
 import json
@@ -572,6 +607,345 @@ def big_scene_phases(dev, card: str) -> list:
     ]
 
 
+GRAD_W, GRAD_H, GRAD_SPP, GRAD_D = 64, 48, 4, 3
+MAIN_W, MAIN_H, MAIN_SPP = 512, 384, 16  # the main path's shape: caustics, RenderConfig()
+INV_W, INV_H, INV_SPP, INV_D, INV_STEPS = 128, 96, 16, 4, 100  # BASELINE.md config 4's size
+TANGENT_BAR = 1e-4  # K2: relative L2 gap of the tangent image
+FIELD_BAR = (1e-4, 1e-7)  # K3/K4: max|kernel - plain| <= a max|plain| + b per field
+# K4 on the mirror cluster, per sphere and entry: |kernel - plain| <= a
+# sum|terms| + b, the terms being the lanes' g . d(sum)/dp (see hold_rows)
+ROW_BAR = (1e-4, 1e-7)
+CLUSTER_DEPTHS = (3, 6, 10, 20)  # K4's largest gradient on the mirror cluster per depth
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def hold_rows(label: str, scene, seed: int, g, w, h, spp, config, got: dict, want: dict) -> float:
+    """K4 against its plain version sphere by sphere, for a scene whose
+    gradients span many decades (a max over the field would hide the small
+    rows): each entry's error on the scale of its own terms, sum over lanes
+    of |g . d(lane's sum)/dp|, the lanes' tangents launched by K2 (one launch
+    per sphere and direction: cx, cy, cz and the radius). Returns the largest
+    |kernel - plain|."""
+    from kajo_tpu_torch.ops import megakernel, megakernel_grad
+
+    S = scene.num_spheres
+    terms = torch.zeros((S, 4), dtype=torch.float32, device=g.device)
+    for j in range(S):
+        for p in range(4):
+            tan = megakernel.scene_zero_tangent(scene)
+            if p < 3:
+                tan.sphere_transform[j, p, 3] = 1.0
+            else:
+                tan.sphere_radius[j] = 1.0
+            ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, w, h, spp, config)
+            _, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, seed)
+            terms[j, p] = (megakernel_grad.cotangent_lanes(ps, g) * sums_dot).abs().sum()
+    worst = 0.0
+    for k, scale in (("center", terms[:, :3]), ("radius", terms[:, 3])):
+        err = (got[k] - want[k]).abs()
+        lim = ROW_BAR[0] * scale + ROW_BAR[1]
+        finite = bool(torch.isfinite(got[k]).all())
+        rows = want[k].reshape(S, -1)
+        row_gap = (got[k] - want[k]).reshape(S, -1).norm(dim=1) / rows.norm(dim=1).clamp_min(1e-30)
+        print(f"{label} {k}, per sphere: max |kernel - plain| / limit {(err / lim).max().item():.3e} (<= 1; limit "
+              f"{ROW_BAR[0]} sum|terms| + {ROW_BAR[1]}); the rows' max|plain| "
+              f"{rows.abs().amax(1).min().item():.3g} .. {rows.abs().amax(1).max().item():.3g}, relative L2 gap "
+              f"per row {row_gap.min().item():.2e} .. {row_gap.max().item():.2e}; finite={finite}")
+        if not (finite and bool((err <= lim).all())):
+            fail(f"{label} {k}: sphere rows {torch.nonzero((err > lim).reshape(S, -1).any(1)).flatten().tolist()}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def hold_fields(label: str, got: dict, want: dict) -> float:
+    """Check every field of a gradient dictionary against the plain one;
+    returns the largest |kernel - plain|."""
+    worst = 0.0
+    for k in want:
+        err = (got[k] - want[k]).abs().max().item()
+        lim = FIELD_BAR[0] * want[k].abs().max().item() + FIELD_BAR[1]
+        finite = bool(torch.isfinite(got[k]).all())
+        print(f"{label} {k}: max|kernel - plain| {err:.3e} (<= {lim:.3e}), "
+              f"max|plain| {want[k].abs().max().item():.4g}, "
+              f"finite={finite}")
+        if not (finite and err <= lim):
+            fail(f"{label} {k}")
+        worst = max(worst, err)
+    return worst
+
+
+def inverse_run(engine: str, card: str) -> dict:
+    """Phase 12 for one engine: the entry point, launches counted from 0 ->
+    its summary and the launch counts."""
+    from kajo_tpu_torch import inverse_rendering
+    from kajo_tpu_torch.ops import megakernel, megakernel_geom, megakernel_grad
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    summary = OUT / f"inverse_{engine}.json"
+    megakernel.kernel_launches = megakernel.jvp_launches = 0
+    megakernel_grad.kernel_launches = megakernel_geom.kernel_launches = 0
+    t0 = time.time()
+    rc = inverse_rendering.main(["--engine", engine, "-w", str(INV_W), "-h", str(INV_H), "--spp", str(INV_SPP),
+                                 "--depth", str(INV_D), "--steps", str(INV_STEPS),
+                                 "--out-prefix", str(OUT / f"inverse_{engine}"), "--summary", str(summary)])
+    counts = dict(K1=megakernel.kernel_launches, K2=megakernel.jvp_launches, K3=megakernel_grad.kernel_launches,
+                  K4=megakernel_geom.kernel_launches)
+    rec = json.loads(summary.read_text())
+    losses = np.asarray(rec["losses"])
+    print(f"gradient path, engine {engine}: rc={rc} in {time.time() - t0:.1f} s; launches {counts}; "
+          f"{rec['ms_per_step']:.3f} ms per step (CUDA events) on {card}; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"sphere offset {rec['offset'][0]:.4f} -> {rec['offset'][1]:.4f}; "
+          f"ground albedo error {rec['albedo_error'][0]:.4f} -> {rec['albedo_error'][1]:.4f}")
+    extra = 3  # K1 renders of the target and of the start and recovered PNGs
+    want = (dict(K1=2 * INV_STEPS + extra, K2=0, K3=2 * INV_STEPS, K4=2 * INV_STEPS) if engine == "mega"
+            else dict(K1=extra, K2=6 * INV_STEPS, K3=0, K4=0))
+    if rc != 0 or counts != want:
+        fail(f"engine {engine}: launches {counts}, want {want} (rc {rc})")
+    if not np.isfinite(losses).all() or not rec["offset"][1] < rec["offset"][0]:
+        fail(f"engine {engine}: a loss is not finite or the sphere's offset did not shrink")
+    if engine == "mega" and not rec["albedo_error"][1] < rec["albedo_error"][0]:
+        fail("engine mega: the ground's albedo error did not shrink")
+    return dict(rec, launches=counts)
+
+
+def walk_counts(ps, seed: int):
+    """The plain walk's path and shadow rays, and per lane and sample its
+    path rays and the distinct spheres it hits (at most TRACK_SLOTS + L)
+    -> (stats, Σ rays x spheres hit over lanes and samples)."""
+    from kajo_tpu_torch.ops import megakernel, megakernel_geom
+
+    stats, log = {}, []
+    megakernel.trace_lanes_plain(ps, seed, stats, hit_log=log)
+    n, eff, P = ps.n_lanes, ps.eff, ps.n_planes
+    rays = torch.zeros((n, eff), dtype=torch.int64, device=ps.packed.device)
+    lanes = torch.arange(n, device=ps.packed.device)
+    for sample, _, active in log:
+        rays[lanes[active], sample[active]] += 1
+    hit = torch.zeros((n, eff, max(ps.n_spheres, 1)), dtype=torch.bool, device=ps.packed.device)
+    for sample, obj, active in log:
+        m = active & (obj >= P)
+        hit[lanes[m], sample[m], (obj - P)[m]] = True
+    n_hit = hit.sum(-1).clamp_max(megakernel_geom.TRACK_SLOTS + ps.n_lights)
+    return stats, float((rays * n_hit).sum())
+
+
+def grad_bounds(ps, seed: int) -> dict:
+    """Each gradient kernel's bound on this pass's data -> {K: (ms, what
+    bounds it, bytes, FP32 operations)}; see the module docstring."""
+    stats, rays_x_spheres = walk_counts(ps, seed)
+    per_ray = ps.n_planes * OPS_PLANE + ps.n_spheres * (OPS_SPHERE_RIGID if ps.rigid else OPS_SPHERE_GENERAL)
+    per_test = OPS_SPHERE_RIGID if ps.rigid else OPS_SPHERE_GENERAL
+    once = ps.n_spheres * OPS_SPHERE_RIGID_ONCE if ps.rigid else 0
+    walk_ops = (stats["rays"] + stats["shadow_rays"]) * per_ray
+    lanes_b = 4 * ps.n_lanes
+    n_cta = -(-ps.n_lanes // 128)
+    fpb = ps.packed.numel() * 4
+    rays_per_walk = (stats["rays"] + stats["shadow_rays"]) / stats["rays"]
+    ops = {
+        "K2": walk_ops + stats["rays"] * 2 * per_test + once,
+        "K3": 2 * walk_ops + once,
+        # discovery walk + 4 Dual replays (each with its winner's tangent
+        # operations) per sphere a sample hits
+        "K4": walk_ops + 4 * rays_x_spheres * (rays_per_walk * per_ray + 2 * per_test) + once,
+    }
+    bytes_ = {
+        "K2": 2 * fpb + 6 * lanes_b,
+        "K3": fpb + 3 * lanes_b + n_cta * (ps.n_planes + ps.n_spheres + 1) * 9 * 4,
+        "K4": fpb + 3 * lanes_b + n_cta * ps.n_spheres * 4 * 4,
+    }
+    print(f"gradient walks at {ps.width}x{ps.height} {ps.spp}spp depth {ps.config.max_depth}: {stats['rays']} path + "
+          f"{stats['shadow_rays']} shadow rays per walk set, {rays_x_spheres:.0f} path rays x spheres hit (K4's "
+          f"replays / 4), {per_ray} FP32 ops per ray")
+    return {k: (*bound(bytes_[k], ops[k]), bytes_[k], ops[k]) for k in ops}
+
+
+def gradient_phases(dev, card: str) -> list:
+    """Phases 11-13 (K2, K3, K4) -> their records for the kernels line."""
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import _nvcc, megakernel, megakernel_geom, megakernel_grad
+    from kajo_tpu_torch.scene import parser
+    from kajo_tpu_torch.scene.procedural import random_spheres_scene
+    from kajo_tpu_torch.scene.testscene import build_mirror_cluster, build_test_scene, build_two_light_scene
+
+    # 11. K2, K3, K4 against their plain versions on the card
+    gw, gh, gspp = GRAD_W, GRAD_H, GRAD_SPP
+    caustics = str(ROOT / "data" / "caustics.json")
+    cfg = RenderConfig(max_depth=GRAD_D)
+    inv_cfg = RenderConfig(max_depth=INV_D)
+    inv_label = f"build_test_scene (the gradient path's) {INV_W}x{INV_H} {INV_SPP}spp depth {INV_D}"
+    cluster = build_mirror_cluster(gw / gh, dev)
+    cases = [  # (label, scene, width, height, spp, config, kernels)
+        ("caustics", parser.load(caustics, gw / gh, dev), gw, gh, gspp, cfg, "234"),
+        ("scaled.json", parser.load(str(ROOT / "data" / "scaled.json"), gw / gh, dev), gw, gh, gspp, cfg, "234"),
+        ("two-light one_light_nee", build_two_light_scene(gw / gh, dev), gw, gh, gspp,
+         RenderConfig(max_depth=GRAD_D, one_light_nee=True), "234"),
+        ("caustics full_mis", parser.load(caustics, gw / gh, dev), gw, gh, gspp,
+         RenderConfig(max_depth=GRAD_D, full_mis=True), "234"),
+        ("random_spheres_scene(40) K=43", random_spheres_scene(40, seed=11, extent=10.0, n_lights=2,
+                                                               aspect_ratio=gw / gh, device=dev), gw, gh, gspp, cfg, "3"),
+        ("random_spheres_scene(200)", random_spheres_scene(200, seed=5, extent=12.0, n_lights=2, aspect_ratio=gw / gh,
+                                                           device=dev), gw, gh, gspp, cfg, "4"),
+        ("mirror cluster", cluster, gw, gh, gspp, RenderConfig(max_depth=20), "4"),
+        (inv_label, build_test_scene(INV_W / INV_H, dev), INV_W, INV_H, INV_SPP, inv_cfg, "234"),
+    ]
+    worst = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+    plain_ms = {}  # at the gradient path's shape
+    for label, scene, w, h, spp, config, kernels in cases:
+        main_shape = label == inv_label
+        if not main_shape:
+            label = f"{label} {w}x{h} {spp}spp depth {config.max_depth}"
+        g = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+        if "2" in kernels:
+            tan = megakernel.scene_zero_tangent(scene)
+            tan.sphere_transform[0, 0, 3] = 1.0
+            tan.sphere_transform[1, 0, 3] = 1.0
+            tan.sphere_radius[1] = 1.0
+            tan.materials.diffuse[0, 1] = 1.0
+            ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, w, h, spp, config)
+            k1 = megakernel.launch_kernel(ps, 2024)
+            sums, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, 2024)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want, want_dot = megakernel.trace_lanes_plain_jvp(ps, packed_dot, 2024)
+            torch.cuda.synchronize()
+            if main_shape:
+                plain_ms["K2"] = (time.time() - t0) * 1e3
+            same = torch.equal(sums.view(torch.int32), k1.view(torch.int32))
+            gap = rel_l2(sums_dot, want_dot)
+            finite = bool(torch.isfinite(sums_dot).all())
+            print(f"K2 {label}: image == K1's (bits) {same}; tangent relative L2 gap {gap:.3e} (<= {TANGENT_BAR}); "
+                  f"finite={finite}")
+            if not (same and gap <= TANGENT_BAR and finite):
+                fail(f"K2 {label}")
+            worst["K2"] = max(worst["K2"], (sums_dot - want_dot).abs().max().item())
+        if "3" in kernels:
+            got = megakernel_grad.material_grads(scene, 2024, g, w, h, spp, config)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = megakernel_grad.material_grads_plain(scene, 2024, g, w, h, spp, config)
+            torch.cuda.synchronize()
+            if main_shape:
+                plain_ms["K3"] = (time.time() - t0) * 1e3
+            worst["K3"] = max(worst["K3"], hold_fields(f"K3 {label}", got, want))
+        if "4" in kernels:
+            got = megakernel_geom.geometry_grads(scene, 2024, g, w, h, spp, config)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            want = megakernel_geom.geometry_grads_plain(scene, 2024, g, w, h, spp, config)
+            torch.cuda.synchronize()
+            if main_shape:
+                plain_ms["K4"] = (time.time() - t0) * 1e3
+            if scene is cluster:
+                worst["K4"] = max(worst["K4"], hold_rows(f"K4 {label}", scene, 2024, g, w, h, spp, config, got, want))
+            else:
+                worst["K4"] = max(worst["K4"], hold_fields(f"K4 {label}", got, want))
+        if main_shape:
+            print(f"plain versions at {inv_label} on {card}: "
+                  + ", ".join(f"{k} {v:.1f} ms" for k, v in plain_ms.items()))
+    # how the mirror cluster's gradients grow with the depth of its mirror chains
+    g = torch.rand((gh, gw, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    growth = {d: megakernel_geom.geometry_grads(cluster, 2024, g, gw, gh, gspp, RenderConfig(max_depth=d))["center"]
+              .abs().max().item() for d in CLUSTER_DEPTHS}
+    print(f"K4 mirror cluster {gw}x{gh} {gspp}spp, max|centre gradient| per max_depth: "
+          + ", ".join(f"{d}: {v:.3g}" for d, v in growth.items()))
+
+    # 12. the gradient path through its entry point
+    runs = {engine: inverse_run(engine, card) for engine in ("mega", "mega-fwd")}
+    scene = build_test_scene(INV_W / INV_H, dev)
+    ps = megakernel.prepare_pass(scene, INV_W, INV_H, INV_SPP, inv_cfg)
+    ps3 = megakernel.prepare_pass(scene, INV_W, INV_H, INV_SPP, dataclasses.replace(inv_cfg, regen_threshold=0.0))
+    gl = megakernel_grad.cotangent_lanes(ps, torch.rand((INV_H, INV_W, 3), device=dev))
+    tan = megakernel.scene_zero_tangent(scene)
+    tan.sphere_transform[1, 0, 3] = 1.0
+    ps2, packed_dot = megakernel.prepare_pass_jvp(scene, tan, INV_W, INV_H, INV_SPP, inv_cfg)
+    share = {
+        "K1": timed(lambda: megakernel.launch_kernel(ps, 5), 20),
+        "K3": timed(lambda: megakernel_grad.launch_kernel(ps3, gl, 5), 20),
+        "K4": timed(lambda: megakernel_geom.launch_kernel(ps, gl, 5), 10),
+    }
+    k2_ms = timed(lambda: megakernel.launch_kernel_jvp(ps2, packed_dot, 5), 20)
+    step_ms, fwd_ms = runs["mega"]["ms_per_step"], runs["mega-fwd"]["ms_per_step"]
+    print(f"engine mega step at {INV_W}x{INV_H} {INV_SPP}spp depth {INV_D} on {card}: {step_ms:.3f} ms; per launch "
+          + ", ".join(f"{k} {v:.4f} ms (2 per step: {100 * 2 * v / step_ms:.1f}%)" for k, v in share.items())
+          + f"; engine mega-fwd step {fwd_ms:.3f} ms, K2 {k2_ms:.4f} ms per launch (6 per step: "
+          f"{100 * 6 * k2_ms / fwd_ms:.1f}%)")
+    ms = {"K2": k2_ms, "K3": share["K3"], "K4": share["K4"]}
+    bounds = grad_bounds(ps, 5)
+    for k in ("K2", "K3", "K4"):
+        b_ms, by, n_bytes, n_ops = bounds[k]
+        print(f"timing {k} {inv_label} on {card}: kernel {ms[k]:.4f} ms per launch, plain {plain_ms[k]:.1f} ms, "
+              f"bound {b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {ms[k] / b_ms:.0f}x the bound")
+
+    # 13. K2, K3, K4 at the main render path's shape
+    w, h, spp = MAIN_W, MAIN_H, MAIN_SPP
+    config = RenderConfig()
+    scene = parser.load(caustics, w / h, dev)
+    tan = megakernel.scene_zero_tangent(scene)
+    tan.sphere_transform[0, 0, 3] = 1.0
+    ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, w, h, spp, config)
+    ps3 = megakernel.prepare_pass(scene, w, h, spp, dataclasses.replace(config, regen_threshold=0.0))
+    gl = megakernel_grad.cotangent_lanes(ps, torch.rand((h, w, 3), generator=torch.Generator().manual_seed(1)).to(dev))
+    seed = 99
+    big_ms = {
+        "K2": min(timed(lambda: megakernel.launch_kernel_jvp(ps, packed_dot, seed), 10) for _ in range(2)),
+        "K3": min(timed(lambda: megakernel_grad.launch_kernel(ps3, gl, seed), 10) for _ in range(2)),
+        "K4": min(timed(lambda: megakernel_geom.launch_kernel(ps, gl, seed), 3) for _ in range(2)),
+    }
+    k1 = megakernel.launch_kernel(ps, seed)
+    sums, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, seed)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, want_dot = megakernel.trace_lanes_plain_jvp(ps, packed_dot, seed)
+    torch.cuda.synchronize()
+    k2_plain_ms = (time.time() - t0) * 1e3
+    same = torch.equal(sums.view(torch.int32), k1.view(torch.int32))
+    gap = rel_l2(sums_dot, want_dot)
+    print(f"K2 caustics {w}x{h} {spp}spp: image == K1's (bits) {same}; tangent relative L2 gap {gap:.3e} "
+          f"(<= {TANGENT_BAR}) against the plain version ({k2_plain_ms:.1f} ms)")
+    if not (same and gap <= TANGENT_BAR and bool(torch.isfinite(sums_dot).all())):
+        fail(f"K2 at caustics {w}x{h} {spp}spp")
+    big_bounds = grad_bounds(ps, seed)
+    for k in ("K2", "K3", "K4"):
+        b_ms, by, n_bytes, n_ops = big_bounds[k]
+        print(f"timing {k} caustics {w}x{h} {spp}spp on {card}: kernel {big_ms[k]:.4f} ms per launch, bound "
+              f"{b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {big_ms[k] / b_ms:.0f}x the bound"
+              + (f", plain {k2_plain_ms:.1f} ms" if k == "K2" else
+                 " (the plain version's reverse-mode graph at this size would not fit in the card's memory)"))
+    for source in ("megakernel_jvp.cu", "megakernel_grad.cu", "megakernel_geom.cu"):
+        for line in _nvcc.library_path(source).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {source}:", line.strip())
+
+    meta = {
+        "K2": ("megakernel_jvp", "kajo_tpu_torch/csrc/megakernel_jvp.cu", "kajo_tpu/ops/pallas/megakernel.py:939",
+               runs["mega-fwd"]["launches"]["K2"]),
+        "K3": ("material_grads", "kajo_tpu_torch/csrc/megakernel_grad.cu", "kajo_tpu/ops/pallas/megakernel_grad.py:841",
+               runs["mega"]["launches"]["K3"]),
+        "K4": ("geometry_grads", "kajo_tpu_torch/csrc/megakernel_geom.cu", "kajo_tpu/ops/pallas/megakernel_geom.py:923",
+               runs["mega"]["launches"]["K4"]),
+    }
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "shape": inv_label,  # ms, plain_ms and bound_ms: the gradient path's launches
+            "launches": launches,
+            "max_abs_err": worst[k],
+            "ms": ms[k],
+            "plain_ms": plain_ms[k],
+            "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1],
+            "library_ms": None,  # no PyTorch call computes a gradient pass
+        }
+        for k, (name, source, replaces, launches) in meta.items()
+    ]
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -585,7 +959,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # 2. build every kernel, one nvcc per source, all started together
-    sources = ("megakernel.cu", "stream_trace.cu")
+    sources = ("megakernel.cu", "stream_trace.cu", "megakernel_jvp.cu", "megakernel_grad.cu", "megakernel_geom.cu")
     t0 = time.time()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_nvcc.load_library, sources))
@@ -600,6 +974,8 @@ def main() -> int:
     k1 = megakernel_phases(dev, card)
     faulthandler.dump_traceback_later(STALL_S, exit=True)  # restart the clock for the big scene
     kernels = [k1, *big_scene_phases(dev, card)]
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    kernels += gradient_phases(dev, card)
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

@@ -9,7 +9,11 @@
 // or one, the deferred MIS weight, emission and background, until it has
 // taken its eff = floor(sqrt(spp))^2 samples. The plain PyTorch twin is
 // kajo_tpu_torch/ops/megakernel.py:trace_lanes_plain; every float
-// expression here is written in the same order as there.
+// expression here is written in the same order as there. The gradient
+// kernels share this walk through csrc/walk.cuh, which computes the same
+// bits; K1 keeps its own copy because built on walk.cuh (its templated loop,
+// or only its helpers) it took 0.2-2.6% longer per pass on an H100 and more
+// registers (PERF.md; tools/torch_k1_ab.py measures such variants).
 //
 // What bounds it on this card: divergent per-lane ALU work and registers, not
 // bytes. Lanes take different numbers of bounces and branches (roulette, the

@@ -1,0 +1,244 @@
+"""Inverse rendering: recover scene parameters from a target image by Adam on
+the gradients of the fused kernels.
+
+Port of ``kajo_tpu/diff/inverse.py`` (BASELINE.md config 4: recover sphere
+position, radius and albedo from a target render). Two engines, both built
+on the megakernel pass:
+
+  * ``mega``: the render is ``megakernel_grad.make_diff_renderer``, K1
+    forward and, in the backward, K3 for the colours and the background and
+    K4 for sphere centres and radii (interior terms; visibility detached);
+  * ``mega-fwd``: one forward-mode pass (K2) per optimised scalar and render,
+    for the few scalars of a sphere's position (``param_mask`` picks them; at
+    most 64).
+
+The loss is the two-sample cross-estimator mean((X1 - T)(X2 - T)) of two
+renders with independent seeds, whose expectation is (E[X] - T)^2: unlike
+the plain MSE of one noisy render it has no variance term pulling the
+optimum toward darker parameters. ``loss_clip`` clamps renders and target
+before comparing (HDR light pixels otherwise swamp the loss); ``mega-fwd``
+masks the tangents of clamped pixels the same way. The clamp is
+``minimum(maximum(x, 0), clip)``, whose derivative splits ties, as
+``jnp.clip``'s does.
+
+Seeds are u32 integers: a step renders with two of them (the JAX step splits
+a threefry key in two; the port takes the seeds, by default
+``pass_seed(seed, 2 i)`` and ``pass_seed(seed, 2 i + 1)`` of step i).
+
+Not ported yet (ROADMAP Queue 1, the next gradient slice): engine ``jax``
+(the differentiable budget engine ``render_pass_budget``), the silhouette and
+shadow boundary terms (``edge_gradients``, ``shadow_edges``,
+``diff/edges.py``) and sharding over a ``mesh``. Asking for them raises
+NotImplementedError; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..models.integrator import RenderConfig
+from ..ops import megakernel_geom, megakernel_grad
+from ..ops.megakernel import render_pass_megakernel_jvp, scene_zero_tangent
+from ..ops.megakernel_grad import leaf, with_leaves
+from ..ops.rng import pass_seed
+from ..scene.types import Scene
+
+# Parameters the fused backward kernels differentiate: colours through K3,
+# sphere geometry through K4. The other material fields (exponent, IOR,
+# transparency) wait for the budget engine.
+MEGA_DIFF_PARAMS = frozenset({"diffuse", "specular", "emission"})
+MEGA_GEOM_PARAMS = frozenset({"sphere_transform", "sphere_radius"})
+
+# Leaves exposed to the optimizer by default (config 4: position/radius/albedo).
+DEFAULT_PARAM_SPEC = ("sphere_transform", "sphere_radius", "diffuse")
+
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 1: the budget engine, diff/edges.py and engine jax)"
+MAX_FWD_DIRECTIONS = 64
+
+
+def extract_params(scene: Scene, spec=DEFAULT_PARAM_SPEC) -> Dict[str, torch.Tensor]:
+    """The named scene tensors (material fields by their own name), as
+    float32 copies."""
+    return {name: leaf(scene, name).detach().to(torch.float32).clone() for name in spec}
+
+
+def apply_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
+    """``scene`` with the named tensors replaced by ``params``."""
+    return with_leaves(scene, dict(params))
+
+
+def cosine_decay(step: int, steps: int, alpha: float = 0.1) -> float:
+    """The factor of ``optax.cosine_decay_schedule(lr, steps, alpha)`` at
+    ``step``: cosine from 1 to ``alpha`` over ``steps``, then ``alpha``."""
+    t = min(step, steps) / steps
+    return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t)) + alpha
+
+
+def make_adam(params: Dict[str, torch.Tensor], learning_rate: float, decay_steps: int = 0):
+    """Adam over the tensors of ``params`` (made leaves that require grad),
+    with ``optax.adam``'s defaults (betas 0.9, 0.999, eps 1e-8 outside the
+    square root), and, for ``decay_steps`` > 0, the cosine decay to 10% of
+    ``optax.cosine_decay_schedule`` -> (optimizer, scheduler or None). Step
+    the scheduler after the optimizer."""
+    leaves = [p.requires_grad_(True) for p in params.values()]
+    opt = torch.optim.Adam(leaves, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    sched = None
+    if decay_steps:
+        sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda i: cosine_decay(i, decay_steps))
+    return opt, sched
+
+
+def clip(x: torch.Tensor, hi) -> torch.Tensor:
+    """x clamped to [0, hi], with ``jnp.clip``'s derivative (ties split)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_tensor(hi))
+
+
+def cross_loss(i1: torch.Tensor, i2: torch.Tensor, target: torch.Tensor, loss_clip=None) -> torch.Tensor:
+    """mean((i1 - t)(i2 - t)) over the RGB of two renders and the target."""
+    t, i1, i2 = target[..., :3], i1[..., :3], i2[..., :3]
+    if loss_clip is not None:
+        t, i1, i2 = clip(t, loss_clip), clip(i1, loss_clip), clip(i2, loss_clip)
+    return torch.mean((i1 - t) * (i2 - t))
+
+
+@dataclasses.dataclass
+class InverseRenderer:
+    """Adam loop recovering scene parameters from a target image."""
+
+    scene: Scene
+    target: torch.Tensor
+    width: int
+    height: int
+    spp: int = 4
+    learning_rate: float = 2e-2
+    config: RenderConfig = RenderConfig()
+    mesh: Any = None
+    param_spec: tuple = DEFAULT_PARAM_SPEC
+    decay_steps: int = 0  # >0: cosine-decay the lr to 10% over this many steps
+    # "auto": engine mega on a CUDA scene that K3 (and, for geometry, K4)
+    # takes, when every optimised parameter is one they differentiate
+    engine: str = "auto"
+    loss_clip: Any = None  # clamp render+target in the loss (HDR stability)
+    edge_gradients: bool = False  # not ported: raises
+    shadow_edges: bool = False  # not ported: raises
+    # engine "mega-fwd": {name: bool tensor} restricting the scalars that get
+    # a direction (e.g. one sphere's translation column)
+    param_mask: Any = None
+    seed: int = 0  # u32 seed of the default per-step seeds
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(f"sharding an inverse render over a mesh {NOT_PORTED}")
+        if self.edge_gradients or self.shadow_edges:
+            raise NotImplementedError(f"the boundary terms (edge_gradients, shadow_edges) {NOT_PORTED}")
+        spec = set(self.param_spec)
+        geom = spec & MEGA_GEOM_PARAMS
+        if self.engine == "auto":
+            fused = (
+                self.scene.device.type == "cuda"
+                and megakernel_grad.supports(self.scene)
+                and spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)
+                and (not geom or megakernel_geom.supports(self.scene, self.config))
+            )
+            if not fused:
+                raise NotImplementedError(f"engine auto would take engine jax, which {NOT_PORTED}")
+            self.engine = "mega"
+        if self.engine == "jax":
+            raise NotImplementedError(f"engine jax {NOT_PORTED}")
+        if self.engine not in ("mega", "mega-fwd"):
+            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.engine == "mega" and not spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS):
+            raise NotImplementedError(
+                f"engine mega differentiates {sorted(MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)}; "
+                f"{sorted(spec - MEGA_DIFF_PARAMS - MEGA_GEOM_PARAMS)} need engine jax, which {NOT_PORTED}"
+            )
+        self.target = self.target.to(self.scene.device)
+        self.params = extract_params(self.scene, self.param_spec)
+        self.opt, self.sched = make_adam(self.params, self.learning_rate, self.decay_steps)
+        self.steps_done = 0
+        if self.engine == "mega":
+            self._render = megakernel_grad.make_diff_renderer(
+                self.width, self.height, self.spp, self.config, geometry=bool(geom)
+            )
+        else:
+            self._directions = self._fwd_directions()
+
+    def _fwd_directions(self):
+        """(name, flat index) of every optimised scalar, in the order of the
+        JAX engine."""
+        dirs = []
+        for name, arr in self.params.items():
+            if self.param_mask and name in self.param_mask:
+                mask = torch.as_tensor(self.param_mask[name]).reshape(-1)
+                idxs = torch.nonzero(mask).reshape(-1).tolist()
+            else:
+                idxs = range(arr.numel())
+            dirs.extend((name, int(i)) for i in idxs)
+        if len(dirs) > MAX_FWD_DIRECTIONS:
+            raise ValueError(
+                f"mega-fwd runs one kernel per optimized scalar; {len(dirs)} directions is too many: "
+                "restrict with param_mask"
+            )
+        return dirs
+
+    def loss_and_grad(self, params: Dict[str, torch.Tensor], seed1: int, seed2: int):
+        """The cross-estimator loss of renders with seeds ``seed1`` and
+        ``seed2`` and its gradient -> (loss, {name: gradient})."""
+        if self.engine == "mega":
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            with torch.enable_grad():
+                updated = apply_params(self.scene, leaves)
+                loss = cross_loss(
+                    self._render(updated, seed1), self._render(updated, seed2), self.target, self.loss_clip
+                )
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            return loss.detach(), dict(zip(leaves, grads))
+        return self._loss_and_grad_fwd(params, seed1, seed2)
+
+    def _loss_and_grad_fwd(self, params, seed1, seed2):
+        w, h, spp, cfg, c = self.width, self.height, self.spp, self.config, self.loss_clip
+        updated = apply_params(self.scene, {k: v.detach() for k, v in params.items()})
+        t = self.target[..., :3]
+        if c is not None:
+            t = clip(t, c)
+        npx = w * h * 3
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        loss = None
+        for name, i in self._directions:
+            tan = {k: torch.zeros_like(v) for k, v in params.items()}
+            tan[name].view(-1)[i] = 1.0
+            tan_scene = apply_params(scene_zero_tangent(updated), tan)
+            i1, d1 = render_pass_megakernel_jvp(updated, tan_scene, seed1, w, h, spp, cfg)
+            i2, d2 = render_pass_megakernel_jvp(updated, tan_scene, seed2, w, h, spp, cfg)
+            i1, i2, d1, d2 = i1[..., :3], i2[..., :3], d1[..., :3], d2[..., :3]
+            if c is not None:
+                d1 = torch.where((i1 > 0) & (i1 < c), d1, 0.0)
+                d2 = torch.where((i2 > 0) & (i2 < c), d2, 0.0)
+                i1, i2 = clip(i1, c), clip(i2, c)
+            loss = torch.sum((i1 - t) * (i2 - t)) / npx
+            grads[name].view(-1)[i] = torch.sum((i2 - t) * d1 + (i1 - t) * d2) / npx
+        return loss, grads
+
+    def step(self, seed1: int | None = None, seed2: int | None = None) -> float:
+        """One Adam step on the renders of two u32 seeds (by default the
+        step's own two) -> the loss before the step."""
+        if seed1 is None:
+            seed1 = pass_seed(self.seed, 2 * self.steps_done)
+        if seed2 is None:
+            seed2 = pass_seed(self.seed, 2 * self.steps_done + 1)
+        loss, grads = self.loss_and_grad(self.params, seed1, seed2)
+        self.opt.zero_grad(set_to_none=False)
+        for name, p in self.params.items():
+            p.grad = grads[name].to(p.dtype)
+        self.opt.step()
+        if self.sched is not None:
+            self.sched.step()
+        self.steps_done += 1
+        return float(loss)
+
+    def current_scene(self) -> Scene:
+        return apply_params(self.scene, {k: v.detach() for k, v in self.params.items()})

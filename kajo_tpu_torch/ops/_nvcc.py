@@ -42,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` with NVCC_FLAGS goes."""
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<source>`` with NVCC_FLAGS goes
+    (the name hashes the source, the headers of ``csrc/`` and the flags)."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -31,9 +31,10 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..models.integrator import RenderConfig
-from ..scene.types import Scene
+from ..scene.types import Scene, map_tensors
 from .geometry import PreparedScene, prepare_scene
 from .rng import pass_seed, uniforms4
 
@@ -50,7 +51,8 @@ _SPG = 23  # general sphere: inv3 row-major (9), invt (3), r2, det, fwd3 row-maj
 _MA = 14   # material: diffuse3, specular3, emission3, transparency3, exp, ior
 _LI = 8    # light: cx, cy, cz, radius, er, eg, eb, obj_id
 
-kernel_launches = 0
+kernel_launches = 0  # K1
+jvp_launches = 0  # K2
 
 
 def pack_scene(prep: PreparedScene) -> torch.Tensor:
@@ -255,36 +257,47 @@ def _image(ps: MegaPass, sums: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ CUDA
+def call_kernel(source: str, symbol: str, tensors, params: MegaParams) -> None:
+    """Call the C entry ``symbol`` of ``csrc/<source>`` with the data
+    pointers of ``tensors`` (contiguous float32, on one CUDA device), the
+    pass's parameters and the current stream; raises on a CUDA error."""
+    from ._nvcc import load_library
+
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{symbol} takes contiguous float32 tensors on one CUDA device")
+    fn = getattr(load_library(source), symbol)
+    fn.argtypes = [ctypes.c_void_p] * (len(tensors) + 2)  # tensors..., params, stream
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), ctypes.addressof(params), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
 def launch_kernel(ps: MegaPass, seed: int) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream -> [3, n_lanes] sums."""
     global kernel_launches
-    from ._nvcc import load_library
-
-    packed = ps.packed
-    if packed.device.type != "cuda" or packed.dtype != torch.float32 or not packed.is_contiguous():
-        raise ValueError("the CUDA megakernel takes a contiguous float32 scene on a CUDA device")
-    lib = load_library("megakernel.cu")
-    fn = lib.kajo_megakernel
-    fn.argtypes = [ctypes.c_void_p] * 4  # scene, out, params, stream
-    fn.restype = ctypes.c_int
-    out = torch.empty((3, ps.n_lanes), dtype=torch.float32, device=packed.device)
-    params = ps.params(seed)  # read by the C entry before it returns
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = fn(packed.data_ptr(), out.data_ptr(), ctypes.addressof(params), stream)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    out = torch.empty((3, ps.n_lanes), dtype=torch.float32, device=ps.packed.device)
+    call_kernel("megakernel.cu", "kajo_megakernel", (ps.packed, out), ps.params(seed))
     kernel_launches += 1
     return out
 
 
+def uses_kernel(device: torch.device) -> bool:
+    """Whether a wrapper launches its CUDA kernel (a CUDA device) or runs
+    its plain version (the CPU); raises for any other device."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no megakernel for device {device}")
+
+
 def _sums(ps: MegaPass, seed: int) -> torch.Tensor:
-    kind = ps.packed.device.type
-    if kind == "cpu":
-        return trace_lanes_plain(ps, seed)
-    if kind == "cuda":
-        return launch_kernel(ps, seed)
-    raise ValueError(f"no megakernel for device {ps.packed.device}")
+    return launch_kernel(ps, seed) if uses_kernel(ps.packed.device) else trace_lanes_plain(ps, seed)
 
 
 def render_pass_megakernel(
@@ -339,6 +352,73 @@ def render_passes_megakernel(
     return total
 
 
+# ------------------------------------------------- forward mode (K2)
+def scene_zero_tangent(scene: Scene) -> Scene:
+    """A tangent of ``scene`` that is 0 everywhere, for
+    :func:`render_pass_megakernel_jvp`: set the perturbed entries of its
+    tensors (``dataclasses.replace`` with a new tensor, or in place)."""
+    return map_tensors(torch.zeros_like, scene)
+
+
+def launch_kernel_jvp(ps: MegaPass, packed_dot: torch.Tensor, seed: int):
+    """Launch the forward-mode kernel K2 -> ([3, n_lanes] sums, their
+    tangents)."""
+    global jvp_launches
+    out = torch.empty((2, 3, ps.n_lanes), dtype=torch.float32, device=ps.packed.device)
+    call_kernel("megakernel_jvp.cu", "kajo_megakernel_jvp", (ps.packed, packed_dot, out), ps.params(seed))
+    jvp_launches += 1
+    return out[0], out[1]
+
+
+def trace_lanes_plain_jvp(ps: MegaPass, packed_dot: torch.Tensor, seed: int):
+    """K2's plain version: forward-mode autodiff of :func:`trace_lanes_plain`
+    along ``packed_dot`` -> (sums, their tangents)."""
+    with fwAD.dual_level():
+        sums = trace_lanes_plain(dataclasses.replace(ps, packed=fwAD.make_dual(ps.packed, packed_dot)), seed)
+        primal, tangent = fwAD.unpack_dual(sums)
+    return primal, (torch.zeros_like(primal) if tangent is None else tangent)
+
+
+def prepare_pass_jvp(scene: Scene, scene_tangent: Scene, width, height, spp, config: RenderConfig):
+    """The pass of ``scene`` and the forward-mode derivative of its packed
+    scene along ``scene_tangent`` (``pack_scene(prepare_scene(.))``
+    differentiated outside the kernel, as the JAX wrapper does)."""
+    with fwAD.dual_level():
+        dual = map_tensors(lambda x, t: fwAD.make_dual(x, t.to(x.dtype)), scene, scene_tangent)
+        ps = prepare_pass(dual, width, height, spp, config)
+        packed, packed_dot = fwAD.unpack_dual(ps.packed)
+    packed = packed.detach().contiguous()
+    packed_dot = torch.zeros_like(packed) if packed_dot is None else packed_dot.detach().contiguous()
+    return dataclasses.replace(ps, packed=packed), packed_dot
+
+
+def render_pass_megakernel_jvp(
+    scene: Scene,
+    scene_tangent: Scene,
+    seed: int,
+    width: int,
+    height: int,
+    spp: int,
+    config: RenderConfig = RenderConfig(),
+):
+    """Forward mode: (image, d image/dε) of one pass, [H, W, 4] each, where
+    ε moves the scene along ``scene_tangent`` (a Scene of tangents, zero but
+    for the perturbed entries; see :func:`scene_zero_tangent`).
+
+    Hit distances, normals, sampled directions, pdfs and MIS weights carry
+    derivatives; the coin probabilities are detached. A CUDA scene launches
+    K2 (``csrc/megakernel_jvp.cu``), whose image equals K1's bit for bit; a
+    CPU scene runs :func:`trace_lanes_plain_jvp`. The tangent's alpha is 0."""
+    ps, packed_dot = prepare_pass_jvp(scene, scene_tangent, width, height, spp, config)
+    if uses_kernel(ps.packed.device):
+        sums, sums_dot = launch_kernel_jvp(ps, packed_dot, seed)
+    else:
+        sums, sums_dot = trace_lanes_plain_jvp(ps, packed_dot, seed)
+    img_dot = _image(ps, sums_dot)
+    img_dot[..., 3] = 0.0
+    return _image(ps, sums), img_dot
+
+
 # ------------------------------------------------ plain PyTorch version
 def _add(a, b):
     return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
@@ -384,16 +464,121 @@ def _reflect(v, n):
     return _sub(v, _scale(n, 2.0 * _dot(n, v)))
 
 
-def _safe_sqrt(x):
+def _sqrt_value(x):
     return torch.sqrt(torch.clamp_min(x, 0.0))
 
 
-def _safe_pow(x, n):
-    """x**n as exp(n log x); 0 for x <= 0, except 1 when n == 0."""
+def _pow_value(x, n):
     m = x > 0
     return torch.where(
         m, torch.exp(n * torch.log(torch.where(m, x, 1.0))), torch.where(n == 0, 1.0, 0.0)
     )
+
+
+class SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) whose derivative is JAX's clamped rule
+    (``megakernel.py:safe_sqrt``): 0.5 rsqrt(max(x, 1e-12)) for x > 0, else
+    0, so a masked x <= 0 lane gives 0 and not 0 * inf = NaN, in reverse and
+    in forward mode."""
+
+    @staticmethod
+    def _slope(x):
+        return torch.where(x > 0, 0.5 * torch.rsqrt(torch.clamp_min(x, 1e-12)), 0.0)
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
+        return _sqrt_value(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * SafeSqrt._slope(x)
+
+    @staticmethod
+    def jvp(ctx, x_t):
+        (x,) = ctx.saved_tensors
+        return SafeSqrt._slope(x) * x_t
+
+
+class SafePow(torch.autograd.Function):
+    """x**n as exp(n log x); 0 for x <= 0, except 1 when n == 0. Its
+    derivatives are JAX's underflow-safe rule (``megakernel.py:safe_pow``):
+    d/dx = n x^(n-1), d/dn = x^n log x where x > 0, else 0."""
+
+    @staticmethod
+    def _slopes(x, n):
+        m = x > 0
+        dx = torch.where(m, n * _pow_value(x, n - 1.0), 0.0)
+        dn = torch.where(m, _pow_value(x, n) * torch.log(torch.where(m, x, 1.0)), 0.0)
+        return dx, dn
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.save_for_backward(x, n)
+        ctx.save_for_forward(x, n)
+        return _pow_value(x, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, n = ctx.saved_tensors
+        dx, dn = SafePow._slopes(x, n)
+        return _reduce_to(g * dx, x), _reduce_to(g * dn, n)
+
+    @staticmethod
+    def jvp(ctx, x_t, n_t):
+        x, n = ctx.saved_tensors
+        dx, dn = SafePow._slopes(x, n)
+        out = 0.0
+        if x_t is not None:
+            out = out + dx * x_t
+        if n_t is not None:
+            out = out + dn * n_t
+        return out
+
+
+def _reduce_to(grad, like):
+    """Sum a broadcast gradient back to the shape of ``like``."""
+    if grad.shape == like.shape:
+        return grad
+    return grad.sum_to_size(like.shape)
+
+
+def _safe_sqrt(x):
+    return SafeSqrt.apply(x)
+
+
+def _safe_pow(x, n):
+    return SafePow.apply(x, n)
+
+
+class _ColourFactor(torch.autograd.Function):
+    """mat * s whose reverse-mode derivative in ``mat`` is 0 where a colour
+    channel is 0: Path Replay (``megakernel_grad.py``) finds a colour's
+    gradient through a throughput factor as g * R_rem / colour, which it
+    takes as 0 for a colour of 0. Its forward mode is the product rule."""
+
+    @staticmethod
+    def forward(ctx, mat, s):
+        ctx.save_for_backward(mat, s)
+        ctx.save_for_forward(mat, s)
+        return mat * s
+
+    @staticmethod
+    def backward(ctx, g):
+        mat, s = ctx.saved_tensors
+        return _reduce_to(torch.where(mat != 0, g * s, 0.0), mat), _reduce_to(g * mat, s)
+
+    @staticmethod
+    def jvp(ctx, mat_t, s_t):
+        mat, s = ctx.saved_tensors
+        out = 0.0
+        if mat_t is not None:
+            out = out + mat_t * s
+        if s_t is not None:
+            out = out + mat * s_t
+        return out
 
 
 def _sphere_hit_general(rec, o, d):
@@ -431,14 +616,30 @@ def _sphere_hit_general(rec, o, d):
     return t, valid, n
 
 
-def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> torch.Tensor:
+def trace_lanes_plain(
+    ps: MegaPass,
+    seed: int,
+    stats: dict | None = None,
+    tracked: torch.Tensor | None = None,
+    hit_log: list | None = None,
+) -> torch.Tensor:
     """The kernel's lane loop, vectorised over lanes -> [3, n_lanes] sums.
 
     Every state update is masked by ``active``, so the lanes that finished
     their samples keep their sums while the others run on. A ``stats`` dict
     receives the counts of path rays (one per live lane per iteration) and
     shadow rays (one per light, or one, per scattering lane) the pass
-    traced; counting reads them back from the device every iteration."""
+    traced; counting reads them back from the device every iteration.
+
+    The walk is differentiable in ``ps.packed`` (reverse and forward mode)
+    with the JAX kernels' conventions: the three coin probabilities and the
+    shadow ray are detached, and ``safe_sqrt``/``safe_pow`` have clamped
+    derivatives; each throughput factor is colour * s through
+    :class:`_ColourFactor` (Path Replay's zero gradient for a zero colour).
+    The geometry plain version asks for more:
+    ``tracked`` (bool [n_lanes, eff, S]) detaches, per lane and sample, the
+    records of the spheres it does not track (the geometry kernel's slot
+    rule); ``hit_log`` receives (sample, obj, active) of every iteration."""
     cfg = ps.config
     s = ps.packed
     dev = s.device
@@ -489,7 +690,14 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
         d = _normalize(_sub(_add(p1, _add(_scale(du, sx), _scale(dv, sy))), origin0))
         return tuple(zf + c for c in origin0), d
 
-    def trace(o, d):
+    def sphere_rec(i, trk):
+        """Sphere i's record; where ``trk`` (bool [n_lanes, S]) is given,
+        per lane, detached for the lanes that do not track the sphere."""
+        if trk is None:
+            return spheres[i]
+        return [torch.where(trk[:, i], x, x.detach()) for x in spheres[i]]
+
+    def trace(o, d, trk=None):
         """Nearest hit over planes then spheres -> (t, obj, normal)."""
         t_best = zf + BIG
         obj_best = zi - 1
@@ -504,8 +712,8 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
             obj_best = torch.where(valid, i, obj_best)
             n_best = _where(valid, (r[5], r[6], r[7]), n_best)
         if not ps.rigid:
-            for i, rec in enumerate(spheres):
-                t, valid, n_new = _sphere_hit_general(rec, o, d)
+            for i in range(S):
+                t, valid, n_new = _sphere_hit_general(sphere_rec(i, trk), o, d)
                 valid = valid & (t < t_best)
                 t_best = torch.where(valid, t, t_best)
                 obj_best = torch.where(valid, P + i, obj_best)
@@ -513,11 +721,13 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
             return t_best, obj_best, n_best
         d_dot_o = _dot(d, o)
         o2 = _dot(o, o)
-        for i, (cx, cy, cz, _r2) in enumerate(spheres):
+        for i in range(S):
+            cx, cy, cz, r2 = sphere_rec(i, trk)
+            c2 = sphere_c2[i] if trk is None else cx * cx + cy * cy + cz * cz - r2
             d_dot_c = d[0] * cx + d[1] * cy + d[2] * cz
             o_dot_c = o[0] * cx + o[1] * cy + o[2] * cz
             b = 2.0 * (d_dot_o - d_dot_c)
-            cq = o2 - 2.0 * o_dot_c + sphere_c2[i]
+            cq = o2 - 2.0 * o_dot_c + c2
             discr = b * b - 4.0 * cq
             sq = _safe_sqrt(discr)
             q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
@@ -581,8 +791,11 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
         for i in range(ncalls):
             us.extend(uniforms4(lane, sample, (salt0 + i) & 0xFFFFFFFF, seed_t))
 
-        t_hit, obj, normal = trace(o, d)
+        trk = tracked[lane - ps.lane0, torch.clamp_max(sample, eff - 1)] if tracked is not None else None
+        t_hit, obj, normal = trace(o, d, trk)
         was_hit = obj >= 0
+        if hit_log is not None:
+            hit_log.append((sample, obj, active))
         pos_hit = _add(o, _scale(d, torch.where(was_hit, t_hit, 0.0)))
 
         # deferred MIS weight from the previous vertex
@@ -614,7 +827,9 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
             ),
         )
         cont = (p_rr > 0) & (us[0] <= p_rr)
-        prob_rr = torch.where(cont, p_rr, 1.0 - p_rr)
+        # the coin probabilities are detached, as in the JAX kernels: a
+        # discrete outcome carries no derivative, so d(1/prob) would bias it
+        prob_rr = torch.where(cont, p_rr, 1.0 - p_rr).detach()
         t3 = _where(on_path, _scale(t3, 1.0 / prob_rr), t3)
         tk = t3
         emitter = on_path & emit
@@ -627,12 +842,12 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
         total = sum_d + sum_s + sum_t
         p_t = torch.where(total > 0, sum_t / torch.where(total == 0, 1.0, total), 0.0)
         transmit = (p_t > 0) & (us[1] <= p_t)
-        prob_t = torch.where(transmit, p_t, 1.0 - p_t)
+        prob_t = torch.where(transmit, p_t, 1.0 - p_t).detach()
         t3 = _where(survive, _scale(t3, 1.0 / prob_t), t3)
         dsum = sum_d + sum_s
         p_d = torch.where(dsum > 0, sum_d / torch.where(dsum == 0, 1.0, dsum), 0.0)
         diffc = (p_d > 0) & (us[2] <= p_d)
-        prob_d = torch.where(diffc, p_d, 1.0 - p_d)
+        prob_d = torch.where(diffc, p_d, 1.0 - p_d).detach()
         t3 = _where(survive & ~transmit, _scale(t3, 1.0 / prob_d), t3)
 
         m_trans = survive & transmit
@@ -663,7 +878,9 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
                 delta = _sub(c, pos_hit)
                 dist = _safe_sqrt(_dot(delta, delta))
                 pdf_l = 1.0 / solid_angle(dist, rad)
-                _, st_obj, _ = trace(_add(pos_hit, _scale(dl, eps)), dl)
+                # visibility is discrete: the shadow ray is detached
+                dl_ = tuple(x.detach() for x in dl)
+                _, st_obj, _ = trace(tuple(x.detach() for x in _add(pos_hit, _scale(dl, eps))), dl_)
                 obj_id = r[7].to(torch.int64)
                 visible = st_obj == obj_id
                 not_self = obj != obj_id
@@ -728,20 +945,17 @@ def trace_lanes_plain(ps: MegaPass, seed: int, stats: dict | None = None) -> tor
         pdf_b = torch.where(m_lam, pdf_lam, torch.where(m_ph, pdf_ph, 1.0))
         cos_nd = _dot(normal, new_d)
         lobe_c = (mexp + 1.0) / two_pi * _safe_pow(torch.clamp_min(_dot(refl, d_ph), 0.0), mexp)
-        zero3 = (zf, zf, zf)
-        fcos = _where(
+        # f cos = (m_lam ? diffuse : specular) * s_cont, linear in the colour
+        s_cont = torch.where(
             m_trans,
-            ms,
-            _where(
+            1.0,
+            torch.where(
                 m_lam,
-                _scale(md, torch.clamp_min(cos_nd, 0.0) / pi),
-                _where(
-                    m_ph,
-                    _scale(ms, lobe_c * torch.clamp_min(cos_nd, 0.0)),
-                    _where(cos_nd > 0, ms, zero3),
-                ),
+                torch.clamp_min(cos_nd, 0.0) / pi,
+                torch.where(m_ph, lobe_c * torch.clamp_min(cos_nd, 0.0), torch.where(cos_nd > 0, 1.0, 0.0)),
             ),
         )
+        fcos = tuple(_ColourFactor.apply(m_, s_cont) for m_ in _where(m_lam, md, ms))
 
         t3 = _where(m_trans, _mul(t3, fcos), t3)
         r3 = _where(emitter, _add(r3, _mul(_where(survive, t3, tk), me)), r3)

@@ -99,3 +99,41 @@ def build_two_light_scene(aspect_ratio: float = 1.5, device="cuda") -> Scene:
     view, projection, background, planes, spheres = two_light_scene_parts(aspect_ratio)
     camera = Camera(transform=torch.tensor(view), projection=torch.tensor(projection))
     return make_scene(camera, background, planes, spheres, device)
+
+
+def mirror_cluster_parts(aspect_ratio: float = 4.0 / 3.0):
+    """(camera transform, camera projection, background, planes, spheres) of
+    27 mirror spheres packed in a 3 x 3 x 3 block over a ground plane, lit
+    by one emissive sphere above, as numpy data for either package's
+    ``make_scene``: paths bounce between many spheres, so at a large
+    ``max_depth`` some visit more than the geometry kernel's
+    ``TRACK_SLOTS`` distinct spheres in one sample."""
+    ident = math3d.identity()
+    spheres = [
+        {
+            "transform": math3d.translate(ident, [1.05 * (i - 1), 1.05 * (j - 1) - 1.0, 1.05 * (k - 1)]),
+            "radius": 0.5,
+            "material": {"specular": [0.95, 0.9, 0.85, 1]},
+        }
+        for i in range(3)
+        for j in range(3)
+        for k in range(3)
+    ]
+    spheres.append(
+        {
+            "transform": math3d.translate(ident, [0.0, -4.0, 0.0]),
+            "radius": 0.6,
+            "material": {"emission": [10, 10, 10, 1]},
+        }
+    )
+    planes = [{"transform": math3d.translate(ident, [0, 1, 0]), "material": {"diffuse": [0.5, 0.5, 0.5, 1]}}]
+    view = math3d.look_at([0.3, -1.2, 4.5], [0, -1, 0], [0, -1, 0])
+    projection = math3d.perspective(30.0, aspect_ratio, 0.1, 100.0)
+    return view, projection, np.zeros(4, np.float32), planes, spheres
+
+
+def build_mirror_cluster(aspect_ratio: float = 4.0 / 3.0, device="cuda") -> Scene:
+    """The scene of :func:`mirror_cluster_parts`."""
+    view, projection, background, planes, spheres = mirror_cluster_parts(aspect_ratio)
+    camera = Camera(transform=torch.tensor(view), projection=torch.tensor(projection))
+    return make_scene(camera, background, planes, spheres, device)

@@ -88,6 +88,23 @@ class Scene:
         return len(self.light_indices)
 
 
+def map_tensors(fn, scene: Scene, *others: Scene) -> Scene:
+    """The scene whose every tensor is ``fn`` of the scene's tensor (and of
+    the same tensor of each of ``others``); the static fields are the
+    scene's."""
+
+    def go(a, *bs):
+        if isinstance(a, torch.Tensor):
+            return fn(a, *bs)
+        if dataclasses.is_dataclass(a):
+            return dataclasses.replace(
+                a, **{f.name: go(getattr(a, f.name), *(getattr(b, f.name) for b in bs)) for f in dataclasses.fields(a)}
+            )
+        return a
+
+    return go(scene, *others)
+
+
 def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-megakernel (K1) and the streaming trace (K5 nearest hit, K6 occlusion).
+megakernel (K1), the streaming trace (K5 nearest hit, K6 occlusion) and the
+gradient kernels (K2 forward mode, K3 material and K4 geometry gradients).
 
 Needs a CUDA device, nvcc and no jax, so on a GPU machine run it without the
 JAX test configuration:
@@ -132,3 +133,95 @@ def test_streamed_pass_launches_the_stream_kernels(device, monkeypatch):
     torch.cuda.synchronize()
     assert torch.isfinite(img).all() and img[..., :3].mean() > 0
     assert stream_trace.nearest_launches > before[0] and stream_trace.occluded_launches > before[1]
+
+
+# ---- the gradient kernels: K2 (forward mode), K3 (materials), K4 (geometry)
+W, H, SPP = 32, 24, 4
+
+
+def _grad_scene(name, device):
+    from kajo_tpu_torch.scene.testscene import build_mirror_cluster
+
+    if name == "two-light":
+        return build_two_light_scene(W / H, device)
+    if name == "mirror-cluster":
+        return build_mirror_cluster(W / H, device)
+    if name == "random40":
+        return random_spheres_scene(40, seed=11, extent=10.0, n_lights=2, aspect_ratio=W / H, device=device)
+    return parser.load(os.path.join(DATA, name), W / H, device)
+
+
+GRAD_CASES = [
+    ("caustics.json", RenderConfig(max_depth=3)),
+    ("scaled.json", RenderConfig(max_depth=3)),
+    ("two-light", RenderConfig(max_depth=3, one_light_nee=True)),
+    ("caustics.json", RenderConfig(max_depth=3, full_mis=True)),
+    ("random40", RenderConfig(max_depth=3)),
+    ("mirror-cluster", RenderConfig(max_depth=20)),
+]
+GRAD_IDS = ["caustics", "scaled", "one-light", "full-mis", "random40", "mirror-cluster-depth20"]
+
+
+def _within(got, want):
+    """Every field: max|kernel - plain| <= 1e-4 max|plain| + 1e-7, finite."""
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        assert (got[k] - want[k]).abs().max().item() <= 1e-4 * want[k].abs().max().item() + 1e-7, k
+
+
+@pytest.mark.parametrize("name,config", GRAD_CASES, ids=GRAD_IDS)
+def test_jvp_kernel_matches_plain(device, name, config):
+    """K2's image equals K1's bit for bit; its tangent is within a relative
+    L2 gap of 1e-4 of forward-mode autodiff of the plain walk."""
+    scene = _grad_scene(name, device)
+    tan = megakernel.scene_zero_tangent(scene)
+    tan.sphere_transform[0, 0, 3] = 1.0
+    tan.sphere_radius[-1] = 1.0
+    tan.materials.diffuse[0, 1] = 1.0
+    ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, W, H, SPP, config)
+    before = megakernel.jvp_launches
+    sums, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, 31)
+    k1 = megakernel.launch_kernel(ps, 31)
+    want, want_dot = megakernel.trace_lanes_plain_jvp(ps, packed_dot, 31)
+    torch.cuda.synchronize()
+    assert megakernel.jvp_launches == before + 1
+    assert torch.equal(sums.view(torch.int32), k1.view(torch.int32))
+    assert torch.isfinite(sums_dot).all()
+    assert ((sums_dot - want_dot).norm() / want_dot.norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("name,config", GRAD_CASES, ids=GRAD_IDS)
+def test_grad_kernels_match_plain(device, name, config):
+    from kajo_tpu_torch.ops import megakernel_geom, megakernel_grad
+
+    scene = _grad_scene(name, device)
+    g = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(4)).to(device)
+    before = (megakernel_grad.kernel_launches, megakernel_geom.kernel_launches)
+    _within(megakernel_grad.material_grads(scene, 31, g, W, H, SPP, config),
+            megakernel_grad.material_grads_plain(scene, 31, g, W, H, SPP, config))
+    _within(megakernel_geom.geometry_grads(scene, 31, g, W, H, SPP, config),
+            megakernel_geom.geometry_grads_plain(scene, 31, g, W, H, SPP, config))
+    assert (megakernel_grad.kernel_launches, megakernel_geom.kernel_launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_inverse_step_on_the_card(device, monkeypatch):
+    """One step of each engine on a CUDA scene launches the kernels and never
+    a plain version."""
+    from kajo_tpu_torch.diff.inverse import InverseRenderer
+    from kajo_tpu_torch.ops import megakernel_geom, megakernel_grad
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA scene reached a plain version")
+
+    for mod, name in ((megakernel, "trace_lanes_plain"), (megakernel, "trace_lanes_plain_jvp"),
+                      (megakernel_grad, "material_grads_plain"), (megakernel_geom, "geometry_grads_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    scene = parser.load(os.path.join(DATA, "caustics.json"), W / H, device)
+    target = megakernel.render_pass_megakernel(scene, 1, W, H, 16)
+    mask = torch.zeros(scene.sphere_transform.shape, dtype=torch.bool)
+    mask[2, :3, 3] = True
+    for kw in (dict(param_spec=("sphere_transform", "diffuse")),
+               dict(engine="mega-fwd", param_spec=("sphere_transform",), param_mask={"sphere_transform": mask})):
+        inv = InverseRenderer(scene, target, W, H, spp=SPP, loss_clip=1.0, **kw)
+        loss = inv.step()
+        assert torch.isfinite(torch.tensor(loss))

@@ -17,7 +17,7 @@ from kajo_tpu.ops.rng import seed_from_key
 from kajo_tpu.scene import parser as jax_parser
 from kajo_tpu.scene.types import Camera as JaxCamera
 from kajo_tpu.scene.types import make_scene as jax_make_scene
-from kajo_tpu_torch.scene.testscene import two_light_scene_parts
+from kajo_tpu_torch.scene.testscene import mirror_cluster_parts, two_light_scene_parts
 from kajo_tpu_torch.scene.types import scene_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,6 +44,11 @@ def jax_two_light_scene(aspect=1.5):
     return jax_make_scene(JaxCamera(view, projection), background, planes, spheres)
 
 
+def jax_mirror_cluster(aspect=4 / 3):
+    view, projection, background, planes, spheres = mirror_cluster_parts(aspect)
+    return jax_make_scene(JaxCamera(view, projection), background, planes, spheres)
+
+
 def jax_pass(scene, key_int, w, h, spp, **config):
     """The JAX megakernel pass in interpret mode -> (image, u32 seed): the
     port takes the same seed as a plain integer."""
@@ -51,6 +56,79 @@ def jax_pass(scene, key_int, w, h, spp, **config):
     with pltpu.force_tpu_interpret_mode():
         img = jax_megakernel.render_pass_megakernel(scene, key, w, h, spp, JaxRenderConfig(**config))
     return np.asarray(img), int(seed_from_key(key))
+
+
+def jax_grad_scene(name, aspect):
+    """A scene of the gradient tests, built by the JAX package: a file of
+    ``data/``, ``"two-light"`` (two lights, for one-light NEE) or
+    ``"random40"`` (``random_spheres_scene(40, seed=11, extent=10,
+    n_lights=2)``: K = 43 objects, the Pallas kernel's table path) or
+    ``"mirror-cluster"`` (27 mirror spheres, for K4's slot rule)."""
+    if name == "two-light":
+        return jax_two_light_scene(aspect)
+    if name == "mirror-cluster":
+        return jax_mirror_cluster(aspect)
+    if name == "random40":
+        from kajo_tpu.scene.procedural import random_spheres_scene
+
+        return random_spheres_scene(40, seed=11, extent=10.0, n_lights=2, aspect_ratio=aspect)
+    return jax_scene(name, aspect)
+
+
+def jax_grad_reference(tmp_dir, jobs, arrays):
+    """The JAX gradient kernels on ``jobs`` (see ``tests/_jax_grad_ref.py``):
+    K2 ``render_pass_megakernel_jvp``, K3 ``material_grads``, K4
+    ``geometry_grads`` and the loss of an engine ``mega`` step, in Pallas
+    interpret mode with their u32 seeds -> {"<job>/<field>": array}.
+
+    They run in a subprocess whose XLA fuses no multiply-add (SSE4.2), on
+    the port's packed scene of each job's scene (``arrays["packed/<scene>"]``,
+    see :func:`port_packed`), so both packages do the same arithmetic."""
+    import json
+    import subprocess
+    import sys
+
+    inp, out, jobs_path = (os.path.join(str(tmp_dir), f) for f in ("in.npz", "out.npz", "jobs.json"))
+    np.savez(inp, **arrays)
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tests", "_jax_grad_ref.py"), inp, out, jobs_path],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+    return dict(np.load(out))
+
+
+def jax_kernel_reference(tmp_dir, kind, cases, w, h, spp, key, arrays=None, **job):
+    """One JAX gradient kernel (``kind``: k2, k3, k4 or loss) on each of
+    ``cases`` = {case: (scene name, RenderConfig fields[, the case's own job
+    fields])}, through :func:`jax_grad_reference` with the port's packed
+    scenes; ``arrays`` and ``job`` (a cotangent's or target's array name,
+    tangents, ...) go to every job -> {"<case>/<field>": array,
+    "<case>/seed": u32 seed}."""
+    arrays = dict(arrays or {})
+    jobs = []
+    for case, (name, cfg, *own) in cases.items():
+        arrays[f"packed/{name}"] = port_packed(to_port(jax_grad_scene(name, w / h)))
+        jobs.append(dict(job, **(own[0] if own else {}), name=case, kind=kind, scene=name, w=w, h=h, spp=spp,
+                         config=cfg, key=key))
+    return jax_grad_reference(tmp_dir, jobs, arrays)
+
+
+def port_packed(scene, config=None):
+    """The port's packed scene (``pack_scene(prepare_scene(.))``) as numpy."""
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops.megakernel import prepare_pass
+
+    return prepare_pass(scene, 1, 1, 1, config or RenderConfig()).packed.numpy()
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over every entry, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
 
 
 def tm(x):
