@@ -66,7 +66,27 @@ with a non-zero exit when it fails:
    there (image equal to K1's, tangent gap <= 1e-4); the plain K3 and K4
    are not run there: their reverse-mode graphs would hold ~2,000 saved
    tensors of 0.79 MB per iteration over ~80 iterations, more than the
-   card's memory.
+   card's memory;
+14. the nearest-hit designs (stream_trace.nearest_design): for config 5,
+   rigid and scale_jitter=0.5, and each of v1, v1-frustum, v1-near-far (K7
+   in packed, frustum and near-to-far block order), v2 (K8) and v3 (K9),
+   record every nearest-hit call of one wavefront pass under the design and
+   hold the kernel against its plain version on each: the same winner on
+   every ray, t equal to the bit; print how many rays' winners differ from
+   K5's on the same inputs and the largest origin norm among them (a
+   report: the designs' tile votes differ from K5's per-ray cull only for
+   rays far outside the scene);
+15. drive the big-scene path under each design, the CLI's main() as in
+   phase 8 inside nearest_design(...), counting launches from 0: the
+   design's kernel must launch, K5 not at all, K6 (shadow rays of the rigid
+   scene) too; the PNG as in phase 8; and one pass under each design, rigid
+   and scale_jitter=0.5, within the bars of phase 3 of the K5 pass with the
+   same seed;
+16. time each design's kernel per call with CUDA events (20 launches) on the
+   recorded rigid calls of phase 14, beside K5 on the same call, its host-
+   side lists (5 runs) and its plain version (1 run, phase 14); its bound is
+   K5's on the same call (same inputs, same answer); and a pass and 8
+   passes in a batch under each design.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -77,7 +97,7 @@ pass (shading not counted); K2 the same plus the tangent operations of the
 winner's test per path ray (2 per test operation); K3 two walks per sample;
 K4 its discovery walk plus four Dual replays per sphere a sample hits (at
 most 8 non-light ones; lights flagged only by an NEE term are not counted).
-K5/K6 count, per ray, the 128-sphere blocks it
+K5/K6 count (and K7-K9 take K5's count), per ray, the 128-sphere blocks it
 needs: those whose box it enters below its final answer (K5: its hit or its
 bound; K6: its cut, or, once occluded, the first block holding an
 occluder); their bytes are the boxes, the records of the blocks some ray
@@ -283,26 +303,25 @@ def read_png(path: Path) -> np.ndarray:
     return np.array(rows, np.uint8).reshape(h, w, 4)
 
 
+# the stream trace's kernel wrappers, by the kind a recorded call carries
+LAUNCHERS = {"nearest": "launch_nearest", "occluded": "launch_occluded", "v1": "launch_nearest_v1",
+             "v2": "launch_nearest_v2", "v3": "launch_nearest_v3"}
+
+
 def record_stream_calls(fn):
-    """Run fn() with every K5/K6 launch recorded -> (fn's result, [(kind,
-    args)]) in call order; the kernels still run."""
+    """Run fn() with every launch of the stream trace's kernels (K5, K6 and
+    the designs K7-K9) recorded -> (fn's result, [(kind, args)]) in call
+    order; the kernels still run."""
     from kajo_tpu_torch.ops import stream_trace as st
 
-    calls, nearest, occluded = [], st.launch_nearest, st.launch_occluded
-
-    def rec_nearest(*args):
-        calls.append(("nearest", args))
-        return nearest(*args)
-
-    def rec_occluded(*args):
-        calls.append(("occluded", args))
-        return occluded(*args)
-
-    st.launch_nearest, st.launch_occluded = rec_nearest, rec_occluded
+    calls, saved = [], {kind: getattr(st, name) for kind, name in LAUNCHERS.items()}
+    for kind, name in LAUNCHERS.items():
+        setattr(st, name, lambda *args, _k=kind, _f=saved[kind]: (calls.append((_k, args)), _f(*args))[1])
     try:
         return fn(), calls
     finally:
-        st.launch_nearest, st.launch_occluded = nearest, occluded
+        for kind, name in LAUNCHERS.items():
+            setattr(st, name, saved[kind])
 
 
 @contextlib.contextmanager
@@ -492,8 +511,9 @@ def hold_stream_calls(dev, jitter: float):
     return scene, calls, results, worst
 
 
-def big_scene_phases(dev, card: str) -> list:
-    """Phases 7-10 (K5, K6) -> their records for the kernels line."""
+def big_scene_phases(dev, card: str):
+    """Phases 7-10 (K5, K6) -> (their records for the kernels line, the
+    config-5 scenes by label)."""
     from kajo_tpu_torch import cli
     from kajo_tpu_torch.models import wavefront
     from kajo_tpu_torch.models.integrator import RenderConfig
@@ -592,6 +612,7 @@ def big_scene_phases(dev, card: str) -> list:
 
     # no single PyTorch call computes a nearest-sphere or any-hit trace
     worst = {k: max(v[3][k] for v in recorded.values()) for k in ("nearest", "occluded")}
+    scenes = {label: v[0] for label, v in recorded.items()}
     return [
         {
             "name": f"stream_{kind}",
@@ -604,7 +625,7 @@ def big_scene_phases(dev, card: str) -> list:
             "library_ms": None,
         }
         for kind, launches in (("nearest", k5_launches), ("occluded", k6_launches))
-    ]
+    ], scenes
 
 
 GRAD_W, GRAD_H, GRAD_SPP, GRAD_D = 64, 48, 4, 3
@@ -946,6 +967,179 @@ def gradient_phases(dev, card: str) -> list:
     ]
 
 
+DESIGNS = ("v1", "v1-frustum", "v1-near-far", "v2", "v3")  # K7 in three orders, K8, K9
+DESIGN_KERNELS = {  # kernel name, source, the TPU kernel it replaces
+    "v1": ("stream_nearest_v1", "kajo_tpu_torch/csrc/stream_trace_v1.cu", "kajo_tpu/ops/pallas/stream_trace.py:141"),
+    "v2": ("stream_nearest_v2", "kajo_tpu_torch/csrc/stream_trace_v2.cu", "kajo_tpu/ops/pallas/stream_trace.py:516"),
+    "v3": ("stream_nearest_v3", "kajo_tpu_torch/csrc/stream_trace_v3.cu", "kajo_tpu/ops/pallas/stream_trace.py:757"),
+}
+
+
+def hold_design_calls(scene, label: str, design: str) -> list:
+    """Phase 14 for one scene and design: record every nearest-hit call of
+    one config-5 pass under the design, hold the kernel against its plain
+    version on each (same winner on every ray, t to the bit) and count the
+    rays whose winner differs from K5's on the same inputs -> per call
+    {args, t (the kernel's), t5 (K5's), plain_ms, max_abs}."""
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    kind = design[:2]
+    big_cfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+    with st.nearest_design(design):
+        _, calls = record_stream_calls(lambda: wavefront.render_pass_fast(scene, 5, BIG_W, BIG_H, BIG_SPP, big_cfg))
+    kinds = [k for k, _ in calls]
+    if kind not in kinds or "nearest" in kinds:
+        fail(f"config 5 {label} under {design}: nearest-hit calls went to {kinds}")
+    launch, plain = getattr(st, f"launch_nearest_{kind}"), getattr(st, f"nearest_{kind}_plain")
+    out = []
+    for i, (k, args) in enumerate(calls):
+        if k != kind:
+            continue
+        t_k, i_k = launch(*args)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        t_p, i_p = plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        t_5, i_5 = st.launch_nearest(*args[:6])
+        torch.cuda.synchronize()
+        ok = torch.equal(i_k, i_p) and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+        differ = i_k != i_5
+        far = args[1][differ].norm(dim=1).max().item() if bool(differ.any()) else 0.0
+        max_abs = (t_k - t_p).abs().max().item()
+        print(f"config 5 {label} {design} call {i}: {args[1].shape[0]} rays, {int((i_p >= 0).sum())} hits; kernel == "
+              f"plain on every ray (bits): {ok} (plain {plain_ms:.0f} ms); winners unlike K5's on {int(differ.sum())} "
+              f"rays, largest origin norm among them {far:.4g}")
+        if not ok:
+            fail(f"config 5 {label} {design}: kernel and plain version differ on call {i}")
+        out.append(dict(args=args, t=t_k, t5=t_5, plain_ms=plain_ms, max_abs=max_abs))
+    return out
+
+
+def design_phases(dev, card: str, scenes: dict) -> list:
+    """Phases 14-16 (K7, K8, K9) -> their records for the kernels line."""
+    from kajo_tpu_torch import cli
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import stream_trace as st
+
+    big_cfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+
+    # 14. every nearest-hit call of a config-5 pass under each design, kernel vs plain
+    t0 = time.time()
+    held = {(label, design): hold_design_calls(scene, label, design) for label, scene in scenes.items()
+            for design in DESIGNS}
+    print(f"phase 14: {time.time() - t0:.1f} s")
+
+    # 15. the big-scene path through the CLI under each design (K5 first and last, as the
+    # yardstick), launches counted from 0
+    t0 = time.time()
+    OUT.mkdir(parents=True, exist_ok=True)
+    launches = {}
+    counters = {"v4": "nearest_launches", "v1": "nearest_v1_launches", "v2": "nearest_v2_launches",
+                "v3": "nearest_v3_launches"}
+    for design in ("v4", *DESIGNS, "v4"):
+        png = OUT / f"procedural_{BIG_N}_{design}.png"
+        for c in (*counters.values(), "occluded_launches"):
+            setattr(st, c, 0)
+        err = io.StringIO()
+        with st.nearest_design(design), contextlib.redirect_stderr(err):
+            rc = cli.main(["--procedural", str(BIG_N), "-w", str(BIG_W), "-h", str(BIG_H), "--spp", str(BIG_SPP),
+                           "--depth", str(BIG_D), "--passes", "8", "-o", str(png)])
+        counts = {c: getattr(st, c) for c in (*counters.values(), "occluded_launches")}
+        own = counters[design[:2]]
+        launches[design] = counts[own]
+        rates = re.findall(r"([0-9.]+[KMG]?) samples/s", err.getvalue())
+        print(f"design {design}: cli rc={rc}, launches {counts}, CLI samples/s {rates}")
+        alone = all(n == 0 for c, n in counts.items() if c not in (own, "occluded_launches"))
+        if rc != 0 or counts[own] == 0 or not alone or counts["occluded_launches"] == 0:
+            sys.stderr.write(err.getvalue())
+            fail(f"the big-scene path under {design} did not run its kernel (and K6) alone")
+        pixels = read_png(png).astype(np.float64)
+        print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
+        if pixels.shape != (BIG_H, BIG_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
+            fail(f"the big-scene path's PNG under {design}")
+    for label, scene in scenes.items():
+        want = wavefront.render_pass_fast(scene, 7, BIG_W, BIG_H, BIG_SPP, big_cfg)
+        for design in DESIGNS:
+            with st.nearest_design(design):
+                got = wavefront.render_pass_fast(scene, 7, BIG_W, BIG_H, BIG_SPP, big_cfg)
+            torch.cuda.synchronize()
+            compare(f"wavefront pass {design} vs K5, config 5 {label}", got, want)
+    print(f"phase 15: {time.time() - t0:.1f} s")
+
+    # 16. per call on the recorded rigid calls: kernel (CUDA events), host lists, plain; K5's bound
+    t0 = time.time()
+    scene = scenes["rigid"]
+    stats = {}
+    for design in DESIGNS:
+        kind = design[:2]
+        launch = getattr(st, f"launch_nearest_{kind}")
+        rows = held[("rigid", design)]
+        per = []
+        for i, row in enumerate(rows):
+            args = row["args"]
+            k_ms = timed(lambda a=args: launch(*a), 20)
+            k5_ms = timed(lambda a=args: st.launch_nearest(*a[:6]), 20)
+            has_lists = design in ("v1-frustum", "v1-near-far", "v2")
+            l_ms = timed(lambda a=args: st.design_lists(design, *a[1:4], a[5]), 5) if has_lists else 0.0
+            n_bytes, n_ops = call_bound("nearest", args[:6], row["t5"])
+            b_ms, by = bound(n_bytes, n_ops)
+            per.append((k_ms, l_ms, row["plain_ms"], b_ms, n_bytes, n_ops))
+            kept = ""
+            if has_lists:  # the recorded call's lists: (..., lists, counts)
+                lists, counts = args[6][-2:]
+                kept = f" (the lists keep {counts.float().mean().item():.1f} of {lists.shape[1]} per tile on average)"
+            print(f"timing {design} call {i} ({args[1].shape[0]} rays) on {card}: kernel {k_ms:.4f} ms, host lists "
+                  f"{l_ms:.4f} ms{kept}, plain {row['plain_ms']:.0f} ms, K5 {k5_ms:.4f} ms; K5's bound {b_ms:.6f} ms "
+                  f"({by}), {k_ms / b_ms:.0f}x the bound")
+        mean = [sum(x[j] for x in per) / len(per) for j in range(4)]
+        by = bound(sum(x[4] for x in per), sum(x[5] for x in per))[1]
+        stats[design] = dict(ms=mean[0], lists_ms=mean[1], plain_ms=mean[2], bound_ms=mean[3], bound_by=by,
+                             calls_per_pass=len(per))
+        print(f"{design}: {len(per)} calls per pass; mean per call kernel {mean[0]:.4f} ms, host lists "
+              f"{mean[1]:.4f} ms, plain {mean[2]:.0f} ms, bound {mean[3]:.6f} ms ({by}), {mean[0] / mean[3]:.0f}x")
+    # a pass and a batch of 8 under each design, K5 first and last
+    for design in ("v4", *DESIGNS, "v4"):
+        pass_ms = []
+        with st.nearest_design(design):
+            for _ in range(3):
+                t1 = time.time()
+                wavefront.render_pass_fast(scene, 11, BIG_W, BIG_H, BIG_SPP, big_cfg)
+                torch.cuda.synchronize()
+                pass_ms.append((time.time() - t1) * 1e3)
+            t1 = time.time()
+            wavefront.render_passes_fast(scene, 0, 8, BIG_W, BIG_H, BIG_SPP, 8, big_cfg)
+            torch.cuda.synchronize()
+            batch_s = time.time() - t1
+        print(f"timing config 5 pass under {design} on {card}: {', '.join(f'{x:.1f}' for x in pass_ms)} ms "
+              f"(host clock); 8 passes in {batch_s * 1e3:.1f} ms = "
+              f"{8 * BIG_W * BIG_H * BIG_SPP / batch_s:.4g} samples/s")
+    print(f"phase 16: {time.time() - t0:.1f} s")
+
+    records = []
+    for kind, (name, source, replaces) in DESIGN_KERNELS.items():
+        own = [d for d in DESIGNS if d[:2] == kind]
+        row = stats[kind]
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            # launches: the CLI runs of phase 15 under this kernel's designs
+            "launches": sum(launches[d] for d in own),
+            "max_abs_err": max(r["max_abs"] for label in scenes for d in own for r in held[(label, d)]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,  # no single PyTorch call computes a nearest-sphere trace
+            "lists_ms": row["lists_ms"],
+            **({"orders": {d: {k: stats[d][k] for k in ("ms", "lists_ms", "plain_ms")} for d in own}}
+               if len(own) > 1 else {}),
+        })
+    return records
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -959,7 +1153,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # 2. build every kernel, one nvcc per source, all started together
-    sources = ("megakernel.cu", "stream_trace.cu", "megakernel_jvp.cu", "megakernel_grad.cu", "megakernel_geom.cu")
+    sources = ("megakernel.cu", "stream_trace.cu", "megakernel_jvp.cu", "megakernel_grad.cu", "megakernel_geom.cu",
+               "stream_trace_v1.cu", "stream_trace_v2.cu", "stream_trace_v3.cu")
     t0 = time.time()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_nvcc.load_library, sources))
@@ -971,11 +1166,20 @@ def main() -> int:
                 print("ptxas:", line.strip())
 
     faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
     k1 = megakernel_phases(dev, card)
+    print(f"phases 3-6: {time.time() - t0:.1f} s")
     faulthandler.dump_traceback_later(STALL_S, exit=True)  # restart the clock for the big scene
-    kernels = [k1, *big_scene_phases(dev, card)]
+    t0 = time.time()
+    stream_rows, scenes = big_scene_phases(dev, card)
+    kernels = [k1, *stream_rows]
+    print(f"phases 7-10: {time.time() - t0:.1f} s")
     faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
     kernels += gradient_phases(dev, card)
+    print(f"phases 11-13: {time.time() - t0:.1f} s")
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    kernels += design_phases(dev, card, scenes)
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

@@ -42,99 +42,19 @@
 // (The TPU kernel's swapped grid, its superblock cull and ray-tile sizing
 // are TPU schedules; a second cull level is later, measured work.)
 //
+// The quadratics, the slab test, the staging and the nearest-hit scan of a
+// block are the helpers of stream_trace.cuh, which K7-K9 share.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (no fast math, no FMA contraction).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "stream_trace.cuh"
 
 namespace {
 
-constexpr int kRays = 128;     // rays per CTA, one per thread
-constexpr int kSpheres = 128;  // spheres per packed block, one box each
-constexpr int kFRigid = 4;     // cx, cy, cz, r2
-constexpr int kFGeneral = 14;  // inv3 row-major (9), invt (3), r2, det
-constexpr float BIG = 3.0e38f;
+using namespace kajo_stream;
 
-// PyTorch's minimum, maximum and clamp_min on the card: NaN propagates,
-// otherwise fminf / fmaxf
-__device__ __forceinline__ float tmin(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fminf(a, b);
-}
-
-__device__ __forceinline__ float tmax(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fmaxf(a, b);
-}
-
-__device__ __forceinline__ float safe_sqrt(float x) { return sqrtf(x != x ? x : fmaxf(x, 0.0f)); }
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float d_dot_o, o2;  // rigid quadratic terms, summed left to right
-};
-
-// world-space stable quadratic with a == 1 (|d| == 1)
-__device__ __forceinline__ bool quadratic_rigid(const float* s, const Ray& r, float& t) {
-  const float cx = s[0], cy = s[1], cz = s[2], r2 = s[3];
-  const float d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
-  const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
-  const float b = 2.0f * (r.d_dot_o - d_dot_c);
-  const float cq = r.o2 - 2.0f * o_dot_c + (cx * cx + cy * cy + cz * cz - r2);
-  const float discr = b * b - 4.0f * cq;
-  const float sq = safe_sqrt(discr);
-  const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
-  const float t1 = cq / (q == 0.0f ? 1.0f : q);
-  const float lo = tmin(q, t1);
-  const float hi = tmax(q, t1);
-  t = lo < 0.0f ? hi : lo;
-  return discr >= 0.0f && hi >= 0.0f && q != 0.0f && t >= 0.0f;
-}
-
-// object-space stable quadratic with det-scaled t
-__device__ __forceinline__ bool quadratic_general(const float* s, const Ray& r, float& t) {
-  const float ox = s[0] * r.ox + s[1] * r.oy + s[2] * r.oz + s[9];
-  const float oy = s[3] * r.ox + s[4] * r.oy + s[5] * r.oz + s[10];
-  const float oz = s[6] * r.ox + s[7] * r.oy + s[8] * r.oz + s[11];
-  const float dx = s[0] * r.dx + s[1] * r.dy + s[2] * r.dz;
-  const float dy = s[3] * r.dx + s[4] * r.dy + s[5] * r.dz;
-  const float dz = s[6] * r.dx + s[7] * r.dy + s[8] * r.dz;
-  const float r2 = s[12], det = s[13];
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float b = 2.0f * (dx * ox + dy * oy + dz * oz);
-  const float cq = ox * ox + oy * oy + oz * oz - r2;
-  const float discr = b * b - 4.0f * a * cq;
-  const float sq = safe_sqrt(discr);
-  const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
-  const float t0 = q / (a == 0.0f ? 1.0f : a);
-  const float t1 = cq / (q == 0.0f ? 1.0f : q);
-  const float lo = tmin(t0, t1);
-  const float hi = tmax(t0, t1);
-  const float t_loc = lo < 0.0f ? hi : lo;
-  t = t_loc * det;
-  return discr >= 0.0f && hi >= 0.0f && a != 0.0f && q != 0.0f && t >= 0.0f;
-}
-
-// one axis of the slab test; inv = 1/d, or BIG where d == 0
-__device__ __forceinline__ void slab_axis(float o, float d, float inv, float lo, float hi, float& t_enter,
-                                          float& t_exit) {
-  const bool inside = o >= lo && o <= hi;
-  const float t0 = (lo - o) * inv;
-  const float t1 = (hi - o) * inv;
-  float near = fminf(t0, t1);
-  float far = fmaxf(t0, t1);
-  if (d == 0.0f) {
-    near = inside ? -BIG : BIG;
-    far = inside ? BIG : -BIG;
-  }
-  t_enter = fmaxf(t_enter, near);
-  t_exit = fminf(t_exit, far);
-}
-
-__device__ __forceinline__ float inv_dir(float d) { return d == 0.0f ? BIG : 1.0f / d; }
+constexpr int kRays = 128;  // rays per CTA, one per thread
 
 template <bool RIGID, bool OCCL>
 __global__ void __launch_bounds__(kRays) stream_kernel(const float* __restrict__ ray_o,
@@ -150,55 +70,31 @@ __global__ void __launch_bounds__(kRays) stream_kernel(const float* __restrict__
 
   const int ray = blockIdx.x * kRays + threadIdx.x;
   const bool live = ray < n;
-  Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float t_best = 0.0f;  // a dead thread is "occluded" and never needs a block
+  const Ray r = load_ray(ray_o, ray_d, ray, live);
+  float t_best = live ? bound[ray] : 0.0f;  // a dead thread is "occluded" and never needs a block
   int32_t best = -1;
-  int32_t excl = -1;
-  if (live) {
-    r.ox = ray_o[3 * ray];
-    r.oy = ray_o[3 * ray + 1];
-    r.oz = ray_o[3 * ray + 2];
-    r.dx = ray_d[3 * ray];
-    r.dy = ray_d[3 * ray + 1];
-    r.dz = ray_d[3 * ray + 2];
-    t_best = bound[ray];
-    if (OCCL) excl = excl_in[ray];
-  }
-  r.d_dot_o = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
-  r.o2 = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  const int32_t excl = OCCL && live ? excl_in[ray] : -1;
   const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     if (OCCL && __syncthreads_and(t_best == 0.0f)) break;  // every ray occluded
-    const float* box = boxes + 8 * blk;
-    bool may = false;
-    if (live) {
-      float t_enter = 0.0f, t_exit = BIG;
-      slab_axis(r.ox, r.dx, ix, box[0], box[3], t_enter, t_exit);
-      slab_axis(r.oy, r.dy, iy, box[1], box[4], t_enter, t_exit);
-      slab_axis(r.oz, r.dz, iz, box[2], box[5], t_enter, t_exit);
-      // slot 6: the block's min det, a lower bound on det-scaled distances
-      may = t_exit >= t_enter && t_enter * box[6] < t_best;
-    }
+    const bool may = live && box_may_hit(r, ix, iy, iz, boxes + 8 * blk, t_best);
     if (!__syncthreads_or(may)) continue;
 
-    const float* src = packed + static_cast<size_t>(blk) * kSpheres * F;
-    for (int k = threadIdx.x; k < kSpheres * F; k += kRays) sph[k] = src[k];
+    stage(sph, packed + static_cast<size_t>(blk) * kSpheres * F, kSpheres * F);
     __syncthreads();
     if (may) {
       const int32_t base = blk * kSpheres;
-      for (int i = 0; i < kSpheres; ++i) {
-        float t;
-        const bool valid = RIGID ? quadratic_rigid(&sph[F * i], r, t) : quadratic_general(&sph[F * i], r, t);
-        if (OCCL) {
-          if (valid && t < t_best && base + i != excl) {
+      if (OCCL) {
+        for (int i = 0; i < kSpheres; ++i) {
+          float t;
+          if (quadratic<RIGID>(&sph[F * i], r, t) && t < t_best && base + i != excl) {
             t_best = 0.0f;  // sticky: t >= 0 never beats 0
             break;
           }
-        } else if (valid && t < t_best) {
-          t_best = t;
-          best = base + i;
         }
+      } else {
+        nearest_in_block<RIGID>(sph, base, r, t_best, best);
       }
     }
     __syncthreads();  // the next staged block overwrites sph

@@ -1,0 +1,165 @@
+// Device helpers of the streaming sphere trace, shared by K5/K6
+// (stream_trace.cu) and the nearest-hit designs K7 (stream_trace_v1.cu), K8
+// (stream_trace_v2.cu) and K9 (stream_trace_v3.cu): the ray record, the
+// rigid and general sphere quadratics, the slab test of a block's box, the
+// staging of a block's records in shared memory and the strict nearest-hit
+// scan of a staged block.
+//
+// One copy on purpose, as kajo_tpu/ops/pallas/stream_trace.py keeps one
+// _quadratic_rigid (:74), one _quadratic_general (:91) and one _slab_test
+// (:118): every kernel must compute the same float operations in the same
+// order, so that each equals its plain PyTorch version in
+// kajo_tpu_torch/ops/stream_trace.py (quadratic_rigid, quadratic_general,
+// _slab) to the bit, and the designs equal one another on rays near the
+// scene. The sources build with -fmad=false (no multiply-add contraction)
+// and without fast math.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace kajo_stream {
+
+constexpr int kSpheres = 128;  // spheres per packed block, one box each
+constexpr int kFRigid = 4;     // cx, cy, cz, r2
+constexpr int kFGeneral = 14;  // inv3 row-major (9), invt (3), r2, det
+constexpr float BIG = 3.0e38f;
+
+// PyTorch's minimum, maximum and clamp_min on the card: NaN propagates,
+// otherwise fminf / fmaxf
+__device__ __forceinline__ float tmin(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fminf(a, b);
+}
+
+__device__ __forceinline__ float tmax(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+
+__device__ __forceinline__ float safe_sqrt(float x) { return sqrtf(x != x ? x : fmaxf(x, 0.0f)); }
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float d_dot_o, o2;  // rigid quadratic terms, summed left to right
+};
+
+// ray i of o, d [N, 3]; a thread without a ray keeps the zero ray
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ ray_o, const float* __restrict__ ray_d, int i,
+                                        bool live) {
+  Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) {
+    r.ox = ray_o[3 * i];
+    r.oy = ray_o[3 * i + 1];
+    r.oz = ray_o[3 * i + 2];
+    r.dx = ray_d[3 * i];
+    r.dy = ray_d[3 * i + 1];
+    r.dz = ray_d[3 * i + 2];
+  }
+  r.d_dot_o = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
+  r.o2 = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  return r;
+}
+
+// world-space stable quadratic with a == 1 (|d| == 1)
+__device__ __forceinline__ bool quadratic_rigid(const float* s, const Ray& r, float& t) {
+  const float cx = s[0], cy = s[1], cz = s[2], r2 = s[3];
+  const float d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
+  const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
+  const float b = 2.0f * (r.d_dot_o - d_dot_c);
+  const float cq = r.o2 - 2.0f * o_dot_c + (cx * cx + cy * cy + cz * cz - r2);
+  const float discr = b * b - 4.0f * cq;
+  const float sq = safe_sqrt(discr);
+  const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
+  const float t1 = cq / (q == 0.0f ? 1.0f : q);
+  const float lo = tmin(q, t1);
+  const float hi = tmax(q, t1);
+  t = lo < 0.0f ? hi : lo;
+  return discr >= 0.0f && hi >= 0.0f && q != 0.0f && t >= 0.0f;
+}
+
+// object-space stable quadratic with det-scaled t
+__device__ __forceinline__ bool quadratic_general(const float* s, const Ray& r, float& t) {
+  const float ox = s[0] * r.ox + s[1] * r.oy + s[2] * r.oz + s[9];
+  const float oy = s[3] * r.ox + s[4] * r.oy + s[5] * r.oz + s[10];
+  const float oz = s[6] * r.ox + s[7] * r.oy + s[8] * r.oz + s[11];
+  const float dx = s[0] * r.dx + s[1] * r.dy + s[2] * r.dz;
+  const float dy = s[3] * r.dx + s[4] * r.dy + s[5] * r.dz;
+  const float dz = s[6] * r.dx + s[7] * r.dy + s[8] * r.dz;
+  const float r2 = s[12], det = s[13];
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float b = 2.0f * (dx * ox + dy * oy + dz * oz);
+  const float cq = ox * ox + oy * oy + oz * oz - r2;
+  const float discr = b * b - 4.0f * a * cq;
+  const float sq = safe_sqrt(discr);
+  const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
+  const float t0 = q / (a == 0.0f ? 1.0f : a);
+  const float t1 = cq / (q == 0.0f ? 1.0f : q);
+  const float lo = tmin(t0, t1);
+  const float hi = tmax(t0, t1);
+  const float t_loc = lo < 0.0f ? hi : lo;
+  t = t_loc * det;
+  return discr >= 0.0f && hi >= 0.0f && a != 0.0f && q != 0.0f && t >= 0.0f;
+}
+
+template <bool RIGID>
+__device__ __forceinline__ bool quadratic(const float* s, const Ray& r, float& t) {
+  return RIGID ? quadratic_rigid(s, r, t) : quadratic_general(s, r, t);
+}
+
+// one axis of the slab test; inv = 1/d, or BIG where d == 0
+__device__ __forceinline__ void slab_axis(float o, float d, float inv, float lo, float hi, float& t_enter,
+                                          float& t_exit) {
+  const bool inside = o >= lo && o <= hi;
+  const float t0 = (lo - o) * inv;
+  const float t1 = (hi - o) * inv;
+  float near = fminf(t0, t1);
+  float far = fmaxf(t0, t1);
+  if (d == 0.0f) {
+    near = inside ? -BIG : BIG;
+    far = inside ? BIG : -BIG;
+  }
+  t_enter = fmaxf(t_enter, near);
+  t_exit = fminf(t_exit, far);
+}
+
+__device__ __forceinline__ float inv_dir(float d) { return d == 0.0f ? BIG : 1.0f / d; }
+
+// Whether the ray enters box (lo3, hi3, min det, 0) below its live bound:
+// t_enter times the box's min det lower-bounds any det-scaled hit distance
+// in it (1 for rigid scenes). BIG, not inf, keeps 0 * (1/d) at 0 on a face.
+__device__ __forceinline__ bool box_may_hit(const Ray& r, float ix, float iy, float iz, const float* box,
+                                            float t_best) {
+  float t_enter = 0.0f, t_exit = BIG;
+  slab_axis(r.ox, r.dx, ix, box[0], box[3], t_enter, t_exit);
+  slab_axis(r.oy, r.dy, iy, box[1], box[4], t_enter, t_exit);
+  slab_axis(r.oz, r.dz, iz, box[2], box[5], t_enter, t_exit);
+  return t_exit >= t_enter && t_enter * box[6] < t_best;
+}
+
+// copy n floats from device memory into shared memory, the CTA's threads
+// striding over them (the caller synchronises before reading)
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
+}
+
+// Scan the staged records of one block in order: a valid hit with
+// t < t_best (strict, so the first row wins a tie) becomes t_best, and its
+// packed row base + i the winner.
+template <bool RIGID>
+__device__ __forceinline__ void nearest_in_block(const float* sph, int32_t base, const Ray& r, float& t_best,
+                                                 int32_t& best) {
+  constexpr int F = RIGID ? kFRigid : kFGeneral;
+  for (int i = 0; i < kSpheres; ++i) {
+    float t;
+    if (quadratic<RIGID>(&sph[F * i], r, t) && t < t_best) {
+      t_best = t;
+      best = base + i;
+    }
+  }
+}
+
+}  // namespace kajo_stream

@@ -1,30 +1,42 @@
 """Streaming sphere trace for big scenes: K5 (nearest hit) and K6 (any-hit
-occlusion), hand-written CUDA kernels and their plain PyTorch versions.
+occlusion), and the nearest-hit designs K7 (V1), K8 (V2) and K9 (V3),
+hand-written CUDA kernels and their plain PyTorch versions.
 
-Port of the V4 path of ``kajo_tpu/ops/pallas/stream_trace.py``
+Port of ``kajo_tpu/ops/pallas/stream_trace.py``: its V4 path
 (``_build_kernel_v4``, reached through ``_v4_impl`` with ``occl=False`` for
-K5 and ``occl=True`` for K6) and of its host side: ``morton_order``,
-``build_stream_scene``, ``nearest_sphere``, ``occluded_sphere``.
+K5 and ``occl=True`` for K6), its V1, V2 and V3 kernels (``_build_kernel``,
+``_build_kernel_v2``, ``_build_kernel_v3``) with their host-side lists, and
+its host side: ``morton_order``, ``build_stream_scene``, ``nearest_sphere``,
+``occluded_sphere``.
 
 ``build_stream_scene`` sorts the spheres along a 3D Morton curve, packs them
 as rigid 4-float records (cx, cy, cz, r²) or general 14-float records (inv3
 row-major, invt, r², det), and cuts the packed array into 128-sphere blocks,
 each with an AABB (inflated by ``slack``) and the block's minimum det in
-slot 6. Whole blocks are then ordered front to back from the camera. The
-kernels and their plain versions scan the blocks in this packed order,
-skip a block whose box a ray does not enter below its live bound, and keep
-a strict ``t < t_best``, so the first packed index wins a tie; they report
-packed indices, which ``nearest_sphere`` maps back to scene numbering
-through the padded ``perm``.
+slot 6. Whole blocks are then ordered front to back from the camera. K5/K6
+and their plain versions scan the blocks in this packed order, skip a block
+whose box a ray does not enter below its live bound, and keep a strict
+``t < t_best``, so the first packed index wins a tie; they report packed
+indices, which ``nearest_sphere`` maps back to scene numbering through the
+padded ``perm``. ``NEAREST_DESIGN`` (or ``nearest_design(...)``, or
+``design=``) routes the nearest hit through K7, K8 or K9 instead, which
+decide per tile of rays which blocks the whole tile scans (see the section
+of the designs below); shadow rays of rigid scenes stay on K6 under every
+design, as in kajo_tpu.
 
 The wrappers dispatch on the device of the rays: CPU tensors take the plain
-version, CUDA tensors launch the kernel (``csrc/stream_trace.cu``) or raise.
-Nothing falls back from CUDA to the plain version. ``nearest_launches`` and
-``occluded_launches`` count the kernels' launches.
+version, CUDA tensors launch the kernel (``csrc/stream_trace.cu``,
+``stream_trace_v1.cu``, ``_v2.cu``, ``_v3.cu``, which share the device
+helpers of ``csrc/stream_trace.cuh``) or raise. Nothing falls back from CUDA
+to the plain version. ``nearest_launches``, ``occluded_launches`` and
+``nearest_v1_launches`` .. ``nearest_v3_launches`` count the kernels'
+launches. Not ported: kajo_tpu's ``FRONT_TO_BACK=False`` and
+``V4_RAY_ROWS`` A/B knobs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -39,8 +51,25 @@ F_GENERAL = 14  # inv3 row-major (9), invt (3), r2, det
 # elements of one [rays, blocks] box-test intermediate of the plain versions
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
+# The nearest-hit design of nearest_sphere (kajo_tpu's KERNEL_V2/V3/V4,
+# TILE_FRUSTUM and NEAR_FAR_ORDER flags as one setting): "v4" K5 (the
+# default); "v1", "v1-frustum", "v1-near-far" K7 with the packed, frustum or
+# near-to-far block order; "v2" K8; "v3" K9 (K7 in packed order on a scene
+# whose packed array exceeds V3_RESIDENT_BYTES, as in kajo_tpu).
+DESIGNS = ("v4", "v1", "v1-frustum", "v1-near-far", "v2", "v3")
+NEAREST_DESIGN = "v4"
+V1_TILE = 128  # rays per K7 tile: its CTA (kajo_tpu's V1 tile: 4096)
+V2_TILE = 512  # rays per K8 tile (kajo_tpu's V2_RAY_TILE)
+V2_SUPER = 1024  # spheres per K8 superblock: 8 blocks (kajo_tpu's V2_SUPER)
+V3_TILE = 512  # rays per K9 tile (kajo_tpu's V3_RAY_TILE)
+V3_RESIDENT_BYTES = 6 * 2**20  # kajo_tpu's cap on the packed scene for V3
+V3_MAX_BLOCKS = 32768  # K9's mask: one byte per block in shared memory
+
 nearest_launches = 0
 occluded_launches = 0
+nearest_v1_launches = 0
+nearest_v2_launches = 0
+nearest_v3_launches = 0
 
 
 # ------------------------------------------------------ sphere quadratics
@@ -209,16 +238,18 @@ def build_stream_scene(prep):
 
 
 # -------------------------------------------------- plain PyTorch versions
-def _slab(o, d, boxes):
-    """Every ray against every block's box -> (t_enter [N, B], entered
-    [N, B]): the kernel's slab test, the same float operations (BIG, not
-    inf, so that 0 * (1/d) stays 0 on a face; fmin/fmax as the kernel's
-    fminf/fmaxf)."""
+def _slab(o, d, boxes, pairs=True):
+    """The kernels' slab test, the same float operations (BIG, not inf, so
+    that 0 * (1/d) stays 0 on a face; fmin/fmax as the kernels' fminf/fmaxf)
+    -> (t_enter, entered): every ray against every block's box ([N, B]), or,
+    with ``pairs`` False, ray i against box i of ``boxes`` [N, 8] ([N])."""
     inv = torch.where(d == 0, BIG, 1.0 / torch.where(d == 0, 1.0, d))
-    t_enter = torch.zeros((o.shape[0], boxes.shape[0]), dtype=torch.float32, device=o.device)
+    shape = (o.shape[0], boxes.shape[0]) if pairs else (o.shape[0],)
+    t_enter = torch.zeros(shape, dtype=torch.float32, device=o.device)
     t_exit = torch.full_like(t_enter, BIG)
     for ax in range(3):
-        oa, da, ia = o[:, ax : ax + 1], d[:, ax : ax + 1], inv[:, ax : ax + 1]
+        col = slice(ax, ax + 1) if pairs else ax
+        oa, da, ia = o[:, col], d[:, col], inv[:, col]
         lo, hi = boxes[:, ax], boxes[:, 3 + ax]
         inside = (oa >= lo) & (oa <= hi)
         t0 = (lo - oa) * ia
@@ -300,6 +331,279 @@ def occluded_sphere_plain(rigid: bool, o, d, t_cut, excl, packed, boxes):
     return t_best
 
 
+# ------------------------------------------- the V1, V2 and V3 designs
+#
+# kajo_tpu's other nearest-hit designs (K7 V1, K8 V2, K9 V3), chosen with
+# NEAREST_DESIGN. Each cuts the rays into tiles of consecutive rays and lets
+# a tile's rays decide together which blocks the whole tile scans, with no
+# per-ray gate on the scan. For rays near the scene that gives K5's answer
+# (the box tests are conservative and a skipped block holds no hit below
+# t_best), up to which of two exactly equal t wins. For rays ~1e4 units out,
+# where the quadratic reports hits on spheres the ray passes units away
+# from (ROADMAP Queue 3), the answer depends on the other rays of the tile:
+# the tile size is part of the function, shared by wrapper, kernel and
+# plain version, and only the call's rays vote (a partial last tile has no
+# padding lanes). kajo_tpu's V1 tile is 4096 rays, its V2/V3 tiles 512.
+
+
+def _by_tile(x, tile: int, fill):
+    """[N, ...] -> [T, tile, ...], T = ceil(N / tile), the last tile padded
+    with ``fill``."""
+    n = x.shape[0]
+    pad = x.new_full((-(-n // tile) * tile - n, *x.shape[1:]), fill)
+    return torch.cat([x, pad]).view(-1, tile, *x.shape[1:])
+
+
+def _tile_bounds(o, d, bound, tile: int):
+    """Per tile, over its live rays (d != 0): the origin box, the direction
+    box (lo, hi [T, 3] each, ±BIG without live rays), the largest bound (0
+    without) and whether it has a live ray -> (olo, ohi, dlo, dhi, tmx,
+    has_live)."""
+    o_t, d_t, b_t = _by_tile(o, tile, 0.0), _by_tile(d, tile, 0.0), _by_tile(bound, tile, 0.0)
+    live = (d_t != 0).any(-1, keepdim=True)
+    olo = torch.where(live, o_t, BIG).amin(1)
+    ohi = torch.where(live, o_t, -BIG).amax(1)
+    dlo = torch.where(live, d_t, BIG).amin(1)
+    dhi = torch.where(live, d_t, -BIG).amax(1)
+    tmx = torch.where(live[..., 0], b_t, 0.0).amax(1)
+    return olo, ohi, dlo, dhi, tmx, live[:, :, 0].any(1)
+
+
+def interval_div(nl, nh, dl, dh):
+    """Interval quotient [nl, nh] / [dl, dh] -> (lo, hi); unbounded
+    (±BIG) where the divisor interval holds 0."""
+    contains0 = (dl <= 0.0) & (dh >= 0.0)
+    sdl = torch.where(contains0, 1.0, dl)
+    sdh = torch.where(contains0, 1.0, dh)
+    q1, q2, q3, q4 = nl / sdl, nl / sdh, nh / sdl, nh / sdh
+    lo = torch.minimum(torch.minimum(q1, q2), torch.minimum(q3, q4))
+    hi = torch.maximum(torch.maximum(q1, q2), torch.maximum(q3, q4))
+    return torch.where(contains0, -BIG, lo), torch.where(contains0, BIG, hi)
+
+
+def frustum_reach(olo, ohi, dlo, dhi, tmx, boxes):
+    """Per tile and block, the interval slab test of (origin box x
+    direction box x [0, tmx)) against the block's box, the lower bound
+    scaled by its min det -> bool [T, B]: False where no ray of the tile
+    can hit the block below the tile's largest bound. K9 computes it in the
+    kernel (csrc/stream_trace_v3.cu, the same operations)."""
+    blo, bhi = boxes[None, :, 0:3], boxes[None, :, 3:6]
+    olo, ohi, dlo, dhi = (x[:, None, :] for x in (olo, ohi, dlo, dhi))
+    # crossing times of each slab plane over every (o, d) of the tile boxes
+    q1l, q1h = interval_div(blo - ohi, blo - olo, dlo, dhi)
+    q2l, q2h = interval_div(bhi - ohi, bhi - olo, dlo, dhi)
+    lb = torch.clamp_min(torch.minimum(q1l, q2l), 0.0).amax(-1)
+    ub = torch.maximum(q1h, q2h).amin(-1)
+    return (lb <= ub) & (lb * boxes[None, :, 6] < tmx[:, None])
+
+
+def _visit_lists(reach, key):
+    """Per tile, the reachable blocks by ascending ``key`` (a stable sort:
+    ties keep block order) -> (lists [T, B] int32, the reachable ones
+    first, counts [T] int32)."""
+    order = torch.argsort(torch.where(reach, key, float("inf")), dim=1, stable=True)
+    return order.to(torch.int32).contiguous(), reach.sum(1).to(torch.int32)
+
+
+def frustum_candidates(o, d, bound, boxes, tile: int = V1_TILE):
+    """K7's frustum order (kajo_tpu ``_frustum_candidates``,
+    TILE_FRUSTUM): per tile, the blocks :func:`frustum_reach` admits, in
+    ascending block order -> (lists [T, B], counts [T]). A tile without
+    live rays visits nothing. (kajo_tpu pads each list with repeats of its
+    last candidate, so that Pallas skips their copies, and a tile without
+    candidates tests its list's first block once; here a list is block ids
+    and a count.)"""
+    olo, ohi, dlo, dhi, tmx, has_live = _tile_bounds(o, d, bound, tile)
+    reach = frustum_reach(olo, ohi, dlo, dhi, tmx, boxes) & has_live[:, None]
+    pos = torch.arange(boxes.shape[0], dtype=torch.float32, device=o.device)
+    return _visit_lists(reach, pos.expand(reach.shape))
+
+
+def _near_far(o, d, lo, hi, tile: int):
+    """Per tile and box (lo, hi [B, 3]): the squared distance from the
+    tile's mean live origin to the box's centre, and whether the box lies
+    behind every live origin along an axis on which every live direction
+    has one sign -> (dist [T, B], behind [T, B], has_live [T], tlo, thi
+    [T, 3] the live origins' box, live [T, tile, 1])."""
+    o_t, d_t = _by_tile(o, tile, 0.0), _by_tile(d, tile, 0.0)
+    live = (d_t != 0).any(-1, keepdim=True)
+    w = live.to(torch.float32)
+    centroid = (o_t * w).sum(1) / torch.clamp_min(w.sum(1), 1.0)
+    gap = centroid[:, None, :] - (0.5 * (lo + hi))[None]
+    dist = gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] + gap[..., 2] * gap[..., 2]
+    tlo = torch.where(live, o_t, BIG).amin(1)
+    thi = torch.where(live, o_t, -BIG).amax(1)
+    all_pos = torch.where(live, d_t >= 0, True).all(1)
+    all_neg = torch.where(live, d_t <= 0, True).all(1)
+    behind = ((all_pos[:, None, :] & (hi[None] < tlo[:, None, :]))
+              | (all_neg[:, None, :] & (lo[None] > thi[:, None, :]))).any(-1)
+    return dist, behind, live[:, :, 0].any(1), tlo, thi, live
+
+
+def near_far_order(o, d, boxes, tile: int = V1_TILE):
+    """K7's near-to-far order (kajo_tpu NEAR_FAR_ORDER, stream_trace.py
+    :395-441): per tile, the blocks not behind its live origins, by the
+    distance of their box centre from the tile's mean live origin ->
+    (lists [T, B], counts [T])."""
+    dist, behind, has_live, *_ = _near_far(o, d, boxes[:, 0:3], boxes[:, 3:6], tile)
+    return _visit_lists(~behind & has_live[:, None], dist)
+
+
+def v2_superblocks(boxes):
+    """K8's superblock boxes: the union box and min det of each run of
+    V2_SUPER // 128 consecutive blocks -> [ceil(B / 8), 8]. Blocks past the
+    scene's last count as (lo +BIG, hi -BIG, min det BIG), as kajo_tpu's
+    filler boxes, and widen nothing."""
+    per = V2_SUPER // BLOCK
+    n_super = -(-boxes.shape[0] // per)
+    filler = boxes.new_tensor([BIG] * 3 + [-BIG] * 3 + [BIG, 0.0])
+    g = torch.cat([boxes, filler.expand(n_super * per - boxes.shape[0], 8)]).view(n_super, per, 8)
+    return torch.cat([g[..., 0:3].amin(1), g[..., 3:6].amax(1), g[..., 6:7].amin(1), torch.zeros_like(g[:, 0, 7:])], 1)
+
+
+def v2_candidates(o, d, bound, boxes, tile: int = V2_TILE):
+    """K8's host side (kajo_tpu ``_nearest_v2_impl`` :594-689): the
+    superblock boxes and, per tile, the reachable superblocks near to far:
+    not behind the tile's live origins and no farther than its largest
+    bound (the box separation, scaled by the min det) -> (sboxes [Bs, 8],
+    lists [T, Bs] int32, counts [T] int32). With one superblock every tile
+    visits it."""
+    sboxes = v2_superblocks(boxes)
+    n_super, n_tiles = sboxes.shape[0], -(-o.shape[0] // tile)
+    if n_super == 1:
+        lists = torch.zeros((n_tiles, 1), dtype=torch.int32, device=o.device)
+        return sboxes, lists, torch.ones(n_tiles, dtype=torch.int32, device=o.device)
+    sb_lo, sb_hi = sboxes[:, 0:3], sboxes[:, 3:6]
+    dist, behind, has_live, tlo, thi, live = _near_far(o, d, sb_lo, sb_hi, tile)
+    tm_max = torch.where(live[..., 0], _by_tile(bound, tile, 0.0), 0.0).amax(1)
+    # per-axis box separation bounds the hit distance of a unit direction
+    sep = torch.maximum(sb_lo[None] - thi[:, None, :], tlo[:, None, :] - sb_hi[None])
+    lb = torch.clamp_min(sep, 0.0).amax(-1)
+    reach = ~behind & (lb * sboxes[None, :, 6] < tm_max[:, None]) & has_live[:, None]
+    return (sboxes, *_visit_lists(reach, dist))
+
+
+def _vote(o, d, t_best, gate, tile: int, active=None):
+    """Each tile's verdict [T]: whether any of its rays (those ``active``,
+    if given) enters its gate box (``gate`` [N, 8], the box of each ray's
+    tile) below its live bound."""
+    t_enter, entered = _slab(o, d, gate, pairs=False)
+    may = entered & (t_enter * gate[:, 6] < t_best)
+    if active is not None:
+        may &= active
+    return _by_tile(may, tile, False).any(1)
+
+
+def _scan(rigid, o, d, rays, blk, packed, t_best, idx):
+    """Rays ``rays`` (indices) scan the 128-sphere block ``blk`` (an int, or
+    a block per ray of ``rays``) in order with a strict t < t_best (the
+    first packed row wins a tie); updates t_best and idx in place."""
+    fields = packed.shape[1]
+    blocks = packed.view(-1, BLOCK, fields)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (BLOCK * fields))
+    for r0 in range(0, rays.shape[0], step):
+        r = rays[r0 : r0 + step]
+        ocol, dcol, d_dot_o, o2 = ray_terms(o[r], d[r])
+        if isinstance(blk, int):
+            rec, base = blocks[blk].T, blk * BLOCK  # [F, 128]
+        else:
+            b = blk[r0 : r0 + step]
+            rec, base = blocks[b].permute(2, 0, 1), b * BLOCK  # [F, m, 128]
+        if rigid:
+            t, valid = quadratic_rigid(rec[0], rec[1], rec[2], rec[3], ocol, dcol, d_dot_o, o2)
+        else:
+            t, valid, _ = quadratic_general(rec, ocol, dcol)
+        t_min, arg = torch.min(torch.where(valid, t, float("inf")), 1)
+        tb = t_best[r]
+        better = t_min < tb
+        t_best[r] = torch.where(better, t_min, tb)
+        idx[r] = torch.where(better, (arg + base).to(torch.int32), idx[r])
+
+
+def _rays_of(tiles, tile: int, n: int):
+    """Indices of the rays of the tiles set in ``tiles`` [T]."""
+    return torch.nonzero(tiles.repeat_interleave(tile)[:n]).squeeze(1)
+
+
+def nearest_v1_plain(rigid: bool, o, d, bound, packed, boxes, order=None, tile: int = V1_TILE):
+    """K7's function in plain PyTorch -> (t [N] f32, idx [N] int32 packed
+    row, -1 where nothing beat the bound).
+
+    Tiles of ``tile`` consecutive rays walk their blocks: every block in
+    packed order (``order`` None), or the first ``counts[j]`` of row j of
+    ``order`` = (lists, counts). Per block, if any ray of the tile enters
+    the block's box below its live bound, every ray of the tile scans the
+    block with a strict t < t_best (kajo_tpu V1, stream_trace.py:141; there
+    the tile is 4096 rays, here V1_TILE, the kernel's)."""
+    n = o.shape[0]
+    t_best = bound.clone()
+    idx = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    if n == 0:
+        return t_best, idx
+    if order is None:
+        for blk in range(boxes.shape[0]):
+            vote = _vote(o, d, t_best, boxes[blk].expand(n, 8), tile)
+            _scan(rigid, o, d, _rays_of(vote, tile, n), blk, packed, t_best, idx)
+        return t_best, idx
+    lists, counts = order
+    ray_tile = torch.arange(n, device=o.device) // tile
+    for s in range(int(counts.max())):
+        b_ray = torch.where(s < counts, lists[:, s], -1).long()[ray_tile]
+        act = b_ray >= 0
+        vote = _vote(o, d, t_best, boxes[b_ray.clamp_min(0)], tile, act)
+        rays = _rays_of(vote, tile, n)
+        _scan(rigid, o, d, rays, b_ray[rays], packed, t_best, idx)
+    return t_best, idx
+
+
+def nearest_v2_plain(rigid: bool, o, d, bound, packed, boxes, cand=None, tile: int = V2_TILE):
+    """K8's function in plain PyTorch -> (t [N] f32, idx [N] int32).
+
+    ``cand`` = (sboxes, lists, counts) of :func:`v2_candidates` (built here
+    when None). Tiles of ``tile`` rays walk their candidate superblocks in
+    list order; per candidate, if any ray of the tile enters the
+    superblock's box below its live bound, every ray of the tile scans its
+    blocks in order with a strict t < t_best: kajo_tpu V2's per-128-chunk
+    minimum with the lowest lane on ties (stream_trace.py:516)."""
+    n = o.shape[0]
+    sboxes, lists, counts = v2_candidates(o, d, bound, boxes, tile) if cand is None else cand
+    t_best = bound.clone()
+    idx = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    if n == 0:
+        return t_best, idx
+    n_blocks, per = boxes.shape[0], V2_SUPER // BLOCK
+    ray_tile = torch.arange(n, device=o.device) // tile
+    for s in range(int(counts.max())):
+        sb_ray = torch.where(s < counts, lists[:, s], -1).long()[ray_tile]
+        act = sb_ray >= 0
+        vote = _vote(o, d, t_best, sboxes[sb_ray.clamp_min(0)], tile, act)
+        rays = _rays_of(vote, tile, n)
+        for c in range(per):
+            blk = sb_ray[rays] * per + c
+            inside = blk < n_blocks  # past the scene's last block: nothing to scan
+            _scan(rigid, o, d, rays[inside], blk[inside], packed, t_best, idx)
+    return t_best, idx
+
+
+def nearest_v3_plain(rigid: bool, o, d, bound, packed, boxes, tile: int = V3_TILE):
+    """K9's function in plain PyTorch -> (t [N] f32, idx [N] int32).
+
+    Per tile of ``tile`` rays, :func:`frustum_reach` of its live rays'
+    bounds marks blocks; every ray of the tile scans the marked blocks in
+    ascending order with a strict t < t_best, no per-ray gate (kajo_tpu V3,
+    stream_trace.py:757)."""
+    n = o.shape[0]
+    t_best = bound.clone()
+    idx = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    if n == 0:
+        return t_best, idx
+    olo, ohi, dlo, dhi, tmx, _ = _tile_bounds(o, d, bound, tile)
+    marks = frustum_reach(olo, ohi, dlo, dhi, tmx, boxes)
+    for blk in torch.nonzero(marks.any(0)).squeeze(1).tolist():
+        _scan(rigid, o, d, _rays_of(marks[:, blk], tile, n), blk, packed, t_best, idx)
+    return t_best, idx
+
+
 # ------------------------------------------------------------------ CUDA
 def _check(name, x, dtype, shape):
     if x.device.type != "cuda" or x.dtype != dtype or not x.is_contiguous() or tuple(x.shape) != shape:
@@ -309,35 +613,46 @@ def _check(name, x, dtype, shape):
         )
 
 
-def _launch(occl: bool, rigid: bool, o, d, bound, packed, boxes, excl=None):
+def _run(source: str, name: str, o, *args) -> None:
+    """Call C function ``name`` of ``csrc/<source>`` on the current stream
+    of ``o``'s device: tensors go as pointers, None as NULL, ints as ints;
+    raises if the launch reports a CUDA error."""
     from ._nvcc import load_library
 
+    fn = getattr(load_library(source), name)
+    fn.argtypes = [ctypes.c_int if isinstance(a, int) else ctypes.c_void_p for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _check_trace(rigid: bool, o, d, bound, packed, boxes):
+    """Check a stream trace's inputs -> (n rays, n blocks)."""
     n = o.shape[0]
-    fields = F_RIGID if rigid else F_GENERAL
     n_blocks = packed.shape[0] // BLOCK
     _check("o", o, torch.float32, (n, 3))
     _check("d", d, torch.float32, (n, 3))
     _check("bound", bound, torch.float32, (n,))
-    _check("packed", packed, torch.float32, (n_blocks * BLOCK, fields))
+    _check("packed", packed, torch.float32, (n_blocks * BLOCK, F_RIGID if rigid else F_GENERAL))
     _check("boxes", boxes, torch.float32, (n_blocks, 8))
-    lib = load_library("stream_trace.cu")
+    return n, n_blocks
+
+
+def _launch(occl: bool, rigid: bool, o, d, bound, packed, boxes, excl=None):
+    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
     t_out = torch.empty((n,), dtype=torch.float32, device=o.device)
     if occl:
         _check("excl", excl, torch.int32, (n,))
-        fn, last = lib.kajo_stream_occluded, excl
-    else:
-        idx_out = torch.empty((n,), dtype=torch.int32, device=o.device)
-        fn, last = lib.kajo_stream_nearest, idx_out
-    # rays o, d, bound; packed, boxes; t_out; idx_out | excl; n, n_blocks, rigid; stream
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(), bound.data_ptr(), packed.data_ptr(), boxes.data_ptr(),
-                 t_out.data_ptr(), last.data_ptr(), n, n_blocks, int(rigid), stream)
-    if err != 0:
-        raise RuntimeError(f"stream trace launch failed: CUDA error {err}")
-    return t_out if occl else (t_out, idx_out)
+        _run("stream_trace.cu", "kajo_stream_occluded", o, o, d, bound, packed, boxes, t_out, excl, n, n_blocks,
+             int(rigid))
+        return t_out
+    idx_out = torch.empty((n,), dtype=torch.int32, device=o.device)
+    _run("stream_trace.cu", "kajo_stream_nearest", o, o, d, bound, packed, boxes, t_out, idx_out, n, n_blocks,
+         int(rigid))
+    return t_out, idx_out
 
 
 def launch_nearest(rigid: bool, o, d, bound, packed, boxes):
@@ -358,6 +673,65 @@ def launch_occluded(rigid: bool, o, d, t_cut, excl, packed, boxes):
     return out
 
 
+def _outputs(o):
+    n = o.shape[0]
+    return (torch.empty((n,), dtype=torch.float32, device=o.device),
+            torch.empty((n,), dtype=torch.int32, device=o.device))
+
+
+def _check_lists(lists, counts, n_tiles: int, width: int):
+    _check("lists", lists, torch.int32, (n_tiles, width))
+    _check("counts", counts, torch.int32, (n_tiles,))
+
+
+def launch_nearest_v1(rigid: bool, o, d, bound, packed, boxes, order=None):
+    """Launch K7 on the current stream -> (t [N], packed idx [N] int32),
+    the function of :func:`nearest_v1_plain` (``order``: None for packed
+    order, else (lists, counts) at V1_TILE)."""
+    global nearest_v1_launches
+    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
+    lists = counts = None
+    if order is not None:
+        lists, counts = order
+        _check_lists(lists, counts, -(-n // V1_TILE), n_blocks)
+    t_out, idx_out = _outputs(o)
+    _run("stream_trace_v1.cu", "kajo_stream_nearest_v1", o, o, d, bound, packed, boxes, lists, counts, t_out,
+         idx_out, n, n_blocks, int(rigid))
+    nearest_v1_launches += 1
+    return t_out, idx_out
+
+
+def launch_nearest_v2(rigid: bool, o, d, bound, packed, boxes, cand=None):
+    """Launch K8 on the current stream -> (t [N], packed idx [N] int32),
+    the function of :func:`nearest_v2_plain` (``cand``: the (sboxes, lists,
+    counts) of :func:`v2_candidates` at V2_TILE, built here when None)."""
+    global nearest_v2_launches
+    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
+    sboxes, lists, counts = v2_candidates(o, d, bound, boxes) if cand is None else cand
+    n_super = -(-n_blocks // (V2_SUPER // BLOCK))
+    _check("sboxes", sboxes, torch.float32, (n_super, 8))
+    _check_lists(lists, counts, -(-n // V2_TILE), n_super)
+    t_out, idx_out = _outputs(o)
+    _run("stream_trace_v2.cu", "kajo_stream_nearest_v2", o, o, d, bound, packed, sboxes, lists, counts, t_out,
+         idx_out, n, n_blocks, n_super, int(rigid))
+    nearest_v2_launches += 1
+    return t_out, idx_out
+
+
+def launch_nearest_v3(rigid: bool, o, d, bound, packed, boxes):
+    """Launch K9 on the current stream -> (t [N], packed idx [N] int32),
+    the function of :func:`nearest_v3_plain`."""
+    global nearest_v3_launches
+    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
+    if n_blocks > V3_MAX_BLOCKS:
+        raise ValueError(f"K9 keeps a byte per block in shared memory: at most {V3_MAX_BLOCKS} blocks, got {n_blocks}")
+    t_out, idx_out = _outputs(o)
+    _run("stream_trace_v3.cu", "kajo_stream_nearest_v3", o, o, d, bound, packed, boxes, t_out, idx_out, n, n_blocks,
+         int(rigid))
+    nearest_v3_launches += 1
+    return t_out, idx_out
+
+
 # ------------------------------------------------------------- host side
 def _device_kind(x):
     kind = x.device.type
@@ -366,17 +740,60 @@ def _device_kind(x):
     return kind
 
 
-def nearest_sphere(prep, o, d, t_max=None):
+def _checked_design(name: str) -> str:
+    if name not in DESIGNS:
+        raise ValueError(f"unknown nearest-hit design {name!r}; the designs are {', '.join(DESIGNS)}")
+    return name
+
+
+@contextlib.contextmanager
+def nearest_design(name: str):
+    """Route every :func:`nearest_sphere` call inside the block through the
+    design ``name`` (one of DESIGNS), then restore the setting."""
+    global NEAREST_DESIGN
+    before, NEAREST_DESIGN = NEAREST_DESIGN, _checked_design(name)
+    try:
+        yield
+    finally:
+        NEAREST_DESIGN = before
+
+
+def design_lists(design: str, o, d, bound, boxes) -> tuple:
+    """A design's host side: the arguments its kernel and plain version
+    take after ``boxes`` -> (order,) for K7 (None: packed order, also on a
+    one-block scene, as kajo_tpu), (cand,) for K8, () for K5 and K9."""
+    if design.startswith("v1"):
+        if boxes.shape[0] > 1 and design == "v1-frustum":
+            return (frustum_candidates(o, d, bound, boxes),)
+        if boxes.shape[0] > 1 and design == "v1-near-far":
+            return (near_far_order(o, d, boxes),)
+        return (None,)
+    if design == "v2":
+        return (v2_candidates(o, d, bound, boxes),)
+    return ()
+
+
+def nearest_sphere(prep, o, d, t_max=None, design=None):
     """Streamed nearest-sphere hit for a prepared scene with a stream
     packing -> (t [N] with inf on miss, sphere index [N] in scene numbering,
-    -1 on miss). ``t_max`` (per ray, optional) bounds the search."""
+    -1 on miss). ``t_max`` (per ray, optional) bounds the search. ``design``
+    (one of DESIGNS) overrides NEAREST_DESIGN; CPU rays take the design's
+    plain version, CUDA rays its kernel, with its block lists built on the
+    rays' device."""
+    design = _checked_design(NEAREST_DESIGN if design is None else design)
     n = o.shape[0]
     bound = o.new_full((n,), BIG) if t_max is None else torch.clamp_max(t_max.to(torch.float32), BIG)
     o, d, bound = o.contiguous(), d.contiguous(), bound.contiguous()
-    if _device_kind(o) == "cpu":
-        t, idx = nearest_sphere_plain(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
-    else:
-        t, idx = launch_nearest(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    packed, boxes = prep.stream_packed, prep.stream_boxes
+    cpu = _device_kind(o) == "cpu"
+    if design == "v3" and packed.numel() * 4 > V3_RESIDENT_BYTES:
+        design = "v1"  # too big to keep resident: V1 in packed order, as kajo_tpu
+    plain, launch = {
+        "v4": (nearest_sphere_plain, launch_nearest), "v1": (nearest_v1_plain, launch_nearest_v1),
+        "v2": (nearest_v2_plain, launch_nearest_v2), "v3": (nearest_v3_plain, launch_nearest_v3),
+    }[design[:2]]
+    fn = plain if cpu else launch
+    t, idx = fn(prep.rigid, o, d, bound, packed, boxes, *design_lists(design, o, d, bound, boxes))
     found = idx >= 0
     idx_orig = torch.where(found, prep.stream_perm[idx.clamp_min(0).long()], -1)
     return torch.where(found, t, float("inf")), idx_orig
@@ -385,7 +802,8 @@ def nearest_sphere(prep, o, d, t_max=None):
 def occluded_sphere(prep, o, d, t_cut, excl=None):
     """Any-hit occlusion -> bool [N]: True where some sphere's hit t is
     strictly below ``t_cut``, skipping the packed row ``excl`` (int32 per
-    ray, -1 = none). A ray with ``t_cut <= 0`` reports occluded at no cost."""
+    ray, -1 = none). A ray with ``t_cut <= 0`` reports occluded at no cost.
+    Every design keeps this K6 path, as kajo_tpu's occluded_sphere does."""
     n = o.shape[0]
     tc = torch.clamp(t_cut.to(torch.float32), 0.0, BIG).contiguous()
     if excl is None:

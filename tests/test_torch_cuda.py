@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-megakernel (K1), the streaming trace (K5 nearest hit, K6 occlusion) and the
-gradient kernels (K2 forward mode, K3 material and K4 geometry gradients).
+megakernel (K1), the streaming trace (K5 nearest hit, K6 occlusion, and the
+nearest-hit designs K7, K8, K9) and the gradient kernels (K2 forward mode, K3 material and K4 geometry gradients).
 
 Needs a CUDA device, nvcc and no jax, so on a GPU machine run it without the
 JAX test configuration:
@@ -119,6 +119,34 @@ def test_stream_kernels_match_plain(device, jitter):
     assert 0 < int((occ_p == 0).sum()) < o.shape[0]
     assert torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32))
     assert (stream_trace.nearest_launches, stream_trace.occluded_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
+@pytest.mark.parametrize("design", ["v1", "v1-frustum", "v1-near-far", "v2", "v3"])
+def test_design_kernels_match_plain(device, design, jitter):
+    """K7 (three block orders), K8 and K9 against their plain versions on
+    the 1500-sphere scene of the CPU tests: the same winner on every ray and
+    t equal to the bit, one launch each, and K5's winners on these rays."""
+    prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device=device))
+    assert prep.stream_packed is not None
+    o, d, bound = _stream_rays(prep, n_side=48)
+    boxes = prep.stream_boxes
+    kind = design[:2]
+    lists = {"v1": (None,), "v1-frustum": (stream_trace.frustum_candidates(o, d, bound, boxes),),
+             "v1-near-far": (stream_trace.near_far_order(o, d, boxes),),
+             "v2": (stream_trace.v2_candidates(o, d, bound, boxes),), "v3": ()}[design]
+    args = (prep.rigid, o, d, bound, prep.stream_packed, boxes, *lists)
+    counter = f"nearest_{kind}_launches"
+    before = getattr(stream_trace, counter)
+    t_k, i_k = getattr(stream_trace, f"launch_nearest_{kind}")(*args)
+    t_p, i_p = getattr(stream_trace, f"nearest_{kind}_plain")(*args)
+    t_5, i_5 = stream_trace.launch_nearest(*args[:6])
+    torch.cuda.synchronize()
+    assert getattr(stream_trace, counter) == before + 1
+    assert int((i_p >= 0).sum()) > 500
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(i_k, i_5)
 
 
 def test_streamed_pass_launches_the_stream_kernels(device, monkeypatch):
