@@ -26,6 +26,13 @@ with a non-zero exit when it fails:
    of one wavefront pass, from the primary rays of the 128x96 x 4 lanes on,
    and hold each kernel against its plain version on those inputs: the same
    winner on every ray, t equal to the bit, the same occlusion on every ray;
+   per K5 call, print the blocks a scan must test (those each ray enters
+   below its final answer, via blocks_entered): per ray, the bound's count;
+   and the union over the rays that decide a block together: per 128-ray
+   CTA (the previous K5's group) and per 4-ray warp (K5's), in the call's
+   order, and per 4 rays in an order sorted by direction octant and origin
+   Morton cell (sorted_order, the order K5 does not take): what the
+   warp-level cull removes;
 8. drive the big-scene path, the CLI's main() with --procedural 100000 -w
    128 -h 96 --spp 4 --depth 2 --passes 8, counting K5's and K6's launches
    from 0: both must launch, and the PNG must decode to finite values with
@@ -94,9 +101,16 @@ peaks), counted on this run's data. A sphere test's ray-independent part
 (cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
 the rest once per ray and sphere. K1 counts the ray-object tests of its
 pass (shading not counted); K2 the same plus the tangent operations of the
-winner's test per path ray (2 per test operation); K3 two walks per sample;
-K4 its discovery walk plus four Dual replays per sphere a sample hits (at
-most 8 non-light ones; lights flagged only by an NEE term are not counted).
+winner's test per path ray (2 per test operation); K3 two walks per sample.
+K4 counts the function's least work, whatever the design: one walk of each
+sample on values (its ray-object tests), plus, per path ray and sphere the
+sample tracks (at most 8 non-light ones and the lights it hits; lights
+flagged only by an NEE term are not counted), the tangent operations of the
+four directions cx, cy, cz, r², each: the winner's test (2 per test
+operation) and the shading of a diffuse vertex (OPS_SHADE_TANGENT, and
+OPS_NEE_TANGENT per NEE light sampled), counted from csrc/walk.cuh's bounce
+at one to three FP32 operations per Dual operation; no value work counted
+twice. Its bytes are the packed scene, the cotangent and the [S, 4] table.
 K5/K6 count (and K7-K9 take K5's count), per ray, the 128-sphere blocks it
 needs: those whose box it enters below its final answer (K5: its hit or its
 bound; K6: its cut, or, once occluded, the first block holding an
@@ -140,6 +154,13 @@ FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores, published
 # the ray-independent cx²+cy²+cz²-r² once per sphere
 OPS_PLANE, OPS_SPHERE_RIGID, OPS_SPHERE_GENERAL = 14, 25, 63
 OPS_SPHERE_RIGID_ONCE = 6
+# FP32 tangent operations per path vertex and direction of K4's function
+# (csrc/walk.cuh bounce; a Dual product 3, a sum 1, a quotient 3, a product
+# or quotient by a float 1): a diffuse vertex's hit point, deferred MIS
+# weight, coin scalings, reflection, tangent frame, continuation and f cos
+# (~151), and per NEE light sampled its sample point, solid angle, pdfs,
+# f cos, weight and term (~134)
+OPS_SHADE_TANGENT, OPS_NEE_TANGENT = 150, 130
 # no phase runs this long; a stall dumps every thread's stack and ends the run
 STALL_S = 600
 BIG_W, BIG_H, BIG_SPP, BIG_D, BIG_N = 128, 96, 4, 2, 100_000  # BASELINE.md config 5
@@ -356,7 +377,7 @@ def call_bound(kind, args, t_final):
     """(bytes, FP32 operations) one K5/K6 call must move and do on these
     inputs; see the module docstring."""
     if kind == "nearest":
-        rigid, o, d, bound_, packed, boxes = args
+        rigid, o, d, bound_, packed, boxes = args[:6]
         needed = blocks_entered(o, d, t_final, boxes)
         per_live_ray, per_ray = 24, 4 + 4 + 4  # o, d; bound in, t and idx out
     else:
@@ -379,6 +400,60 @@ def call_bound(kind, args, t_final):
     else:
         n_ops = float(needed.sum()) * 128 * OPS_SPHERE_GENERAL
     return n_bytes, n_ops
+
+
+def union_per_group(needed: torch.Tensor, order: torch.Tensor, group: int) -> float:
+    """Mean over groups of ``group`` consecutive rays of ``order`` of the
+    number of blocks some ray of the group needs (``needed`` [N, B])."""
+    sel = needed[order]
+    pad = -sel.shape[0] % group
+    sel = torch.cat([sel, sel.new_zeros((pad, sel.shape[1]))])
+    return float(sel.view(-1, group, sel.shape[1]).any(1).sum(1).float().mean())
+
+
+def sorted_order(o, d, boxes) -> torch.Tensor:
+    """The rays stable-sorted by direction octant, then by the Morton cell
+    (10 bits an axis) of the origin in the scene's box: a coherent order
+    that K5 does not take (PERF.md, section 6), kept to show why."""
+    from kajo_tpu_torch.ops.stream_trace import _expand_bits10
+
+    lo, hi = boxes[:, 0:3].amin(0), boxes[:, 3:6].amax(0)
+    e = _expand_bits10(torch.clamp((o - lo) / torch.clamp_min(hi - lo, 1e-20) * 1023.0, 0.0, 1023.0).long())
+    neg = (d < 0).long()
+    key = (((neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]) << 30) | (e[:, 0] << 2) | (e[:, 1] << 1) | e[:, 2]
+    return torch.argsort(key, stable=True)
+
+
+def blocks_scanned(args, t_final) -> str:
+    """The blocks a K5 call's scan must test, per ray and per group of rays
+    that decide a block together (see phase 7)."""
+    o, d, bound_, boxes = args[1], args[2], args[3], args[5]
+    needed = blocks_entered(o, d, t_final, boxes) & (bound_ > 0)[:, None]
+    given = torch.arange(o.shape[0], device=o.device)
+    return (f"per ray {needed.sum(1).float().mean().item():.2f} (the bound's count); in the call's order per 128-ray "
+            f"CTA (the previous K5's group) {union_per_group(needed, given, 128):.2f}, per 4-ray warp (K5's) "
+            f"{union_per_group(needed, given, 4):.2f}; per 4 rays sorted by octant and origin cell "
+            f"{union_per_group(needed, sorted_order(o, d, boxes), 4):.2f}; of {boxes.shape[0]} blocks")
+
+
+def ptxas_usage(source: str, entry: str) -> tuple:
+    """(most registers, most bytes of spill stores) over the kernel entries
+    of csrc/<source> whose mangled name holds ``entry``, from ptxas' report."""
+    from kajo_tpu_torch.ops import _nvcc
+
+    regs = spills = 0
+    current = ""
+    for line in _nvcc.library_path(source).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            current = m.group(1)
+        if entry not in current:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        spills = max(spills, int(m.group(1))) if m else spills
+        m = re.search(r"Used (\d+) registers", line)
+        regs = max(regs, int(m.group(1))) if m else regs
+    return regs, spills
 
 
 def megakernel_phases(dev, card: str) -> dict:
@@ -507,6 +582,8 @@ def hold_stream_calls(dev, jitter: float):
               f"(bits): {ok}, max |diff| {diff:.3e} ({time.time() - t0:.1f} s)")
         if not ok:
             fail(f"config 5 {label}: {kind} kernel and plain version differ on call {i}")
+        if kind == "nearest":
+            print(f"config 5 {label} call {i} blocks scanned: {blocks_scanned(args, out_p)}")
         results.append(out_k)
     return scene, calls, results, worst
 
@@ -602,7 +679,7 @@ def big_scene_phases(dev, card: str):
     prep_ms = timed(lambda: geometry.prepare_scene(scene), 3)
     prof = profile_device(lambda: wavefront.render_pass_fast(scene, 11, BIG_W, BIG_H, BIG_SPP, big_cfg))
     per_name = prof["per_name"]
-    stream_ms = sum(ms for name, (ms, _) in per_name.items() if "stream_kernel" in name)
+    stream_ms = sum(ms for name, (ms, _) in per_name.items() if "nearest_kernel" in name or "occluded_kernel" in name)
     n_kernels = sum(n for _, n in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"profile config 5 pass on {card}: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.2f} ms "
@@ -623,6 +700,8 @@ def big_scene_phases(dev, card: str):
             "max_abs_err": worst[kind],
             **{k: stream_rows[kind][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
+            **(dict(zip(("registers", "spills"), ptxas_usage("stream_trace.cu", "nearest_kernel")))
+               if kind == "nearest" else {}),
         }
         for kind, launches in (("nearest", k5_launches), ("occluded", k6_launches))
     ], scenes
@@ -764,22 +843,23 @@ def grad_bounds(ps, seed: int) -> dict:
     lanes_b = 4 * ps.n_lanes
     n_cta = -(-ps.n_lanes // 128)
     fpb = ps.packed.numel() * 4
-    rays_per_walk = (stats["rays"] + stats["shadow_rays"]) / stats["rays"]
+    nee_lights = (1 if ps.one_light else ps.n_lights) if ps.nee_on else 0
+    k4_tangent = 2 * per_test + OPS_SHADE_TANGENT + nee_lights * OPS_NEE_TANGENT  # per direction
     ops = {
         "K2": walk_ops + stats["rays"] * 2 * per_test + once,
         "K3": 2 * walk_ops + once,
-        # discovery walk + 4 Dual replays (each with its winner's tangent
-        # operations) per sphere a sample hits
-        "K4": walk_ops + 4 * rays_x_spheres * (rays_per_walk * per_ray + 2 * per_test) + once,
+        # one walk on values + the four directions' tangent operations per
+        # path ray and tracked sphere (the function's, not a design's)
+        "K4": walk_ops + 4 * rays_x_spheres * k4_tangent + once,
     }
     bytes_ = {
         "K2": 2 * fpb + 6 * lanes_b,
         "K3": fpb + 3 * lanes_b + n_cta * (ps.n_planes + ps.n_spheres + 1) * 9 * 4,
-        "K4": fpb + 3 * lanes_b + n_cta * ps.n_spheres * 4 * 4,
+        "K4": fpb + 3 * lanes_b + ps.n_spheres * 4 * 4,
     }
     print(f"gradient walks at {ps.width}x{ps.height} {ps.spp}spp depth {ps.config.max_depth}: {stats['rays']} path + "
-          f"{stats['shadow_rays']} shadow rays per walk set, {rays_x_spheres:.0f} path rays x spheres hit (K4's "
-          f"replays / 4), {per_ray} FP32 ops per ray")
+          f"{stats['shadow_rays']} shadow rays per walk set, {rays_x_spheres:.0f} path rays x tracked spheres, "
+          f"{per_ray} FP32 ops per ray, K4 {k4_tangent} tangent ops per direction, path ray and tracked sphere")
     return {k: (*bound(bytes_[k], ops[k]), bytes_[k], ops[k]) for k in ops}
 
 
@@ -962,6 +1042,8 @@ def gradient_phases(dev, card: str) -> list:
             "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
             "library_ms": None,  # no PyTorch call computes a gradient pass
+            **(dict(zip(("registers", "spills"), ptxas_usage("megakernel_geom.cu", "geometry_grads")))
+               if k == "K4" else {}),
         }
         for k, (name, source, replaces, launches) in meta.items()
     ]
@@ -1082,7 +1164,7 @@ def design_phases(dev, card: str, scenes: dict) -> list:
         for i, row in enumerate(rows):
             args = row["args"]
             k_ms = timed(lambda a=args: launch(*a), 20)
-            k5_ms = timed(lambda a=args: st.launch_nearest(*a[:6]), 20)
+            k5_ms = timed(lambda a=args, sb=st.v2_superblocks(args[5]): st.launch_nearest(*a[:6], sb), 20)
             has_lists = design in ("v1-frustum", "v1-near-far", "v2")
             l_ms = timed(lambda a=args: st.design_lists(design, *a[1:4], a[5]), 5) if has_lists else 0.0
             n_bytes, n_ops = call_bound("nearest", args[:6], row["t5"])

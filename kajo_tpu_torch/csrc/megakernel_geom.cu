@@ -1,32 +1,53 @@
-// Sphere geometry gradients of the fused pass for Hopper (sm_90a): K4, one
-// thread per lane.
+// Sphere geometry gradients of the fused pass for Hopper (sm_90a): K4.
 //
 // Replaces kajo_tpu/ops/pallas/megakernel_geom.py:_build_geom_kernel (:124),
 // the Pallas kernel behind geometry_grads (:923). A path's radiance depends
 // on the geometry of the few distinct spheres it hits (visibility is discrete,
-// so detached), so each lane, per sample:
-//  * walks the sample once on floats (csrc/walk.cuh), recording up to
+// so detached), so per lane and sample the function needs:
+//  * the sample walked once on floats (csrc/walk.cuh), recording up to
 //    TRACK_SLOTS = 8 distinct non-light spheres it hits and, with NEE on, a
 //    flag per light whose NEE term counted or which it hit (:715-742);
-//  * replays the same path (same PCG4D stream, the same branches) as a Dual
-//    walk for each filled slot j and each direction p in (cx, cy, cz, r^2),
-//    the tangent injected only into sphere j's records: the rigid record's
-//    field p, or the general record's invt (d invt/dc = -inv3) and r^2, and,
-//    when j is a light, its light record (centre, and the radius through
-//    sqrt(r^2)). The slots come in the order of :769-815: the discovered
-//    ones, then one per flagged light; only filled slots are replayed.
-//  * adds g . d(radiance)/dp of each replay to table[j][p].
-// The shadow ray is traced on values (detached, :576-577). The table is a
-// per-CTA [S, 4] in shared memory (8 KB at S = 512), added to with shared
-// atomics; each CTA writes its own to out[blockIdx.x] and one torch.sum
-// finishes it. The plain PyTorch twin is reverse-mode autodiff of
-// kajo_tpu_torch/ops/megakernel.py:trace_lanes_plain through the scene's
-// packing (ops/megakernel_geom.py:geometry_grads_plain).
+//  * for each filled slot j (the order of :769-815: the discovered ones, then
+//    one per flagged light), the same path (same PCG4D stream, the same
+//    branches) replayed with the tangents of sphere j's four directions p in
+//    (cx, cy, cz, r^2) injected into its records: the rigid record's field p,
+//    or the general record's invt (d invt/dc = -inv3) and r^2, and, when j is
+//    a light, its light record (centre, and the radius through sqrt(r^2));
+//  * g . d(radiance)/dp of each replay added to table[j][p].
+// The shadow ray is traced on values (detached, :576-577). The plain PyTorch
+// twin is reverse-mode autodiff of kajo_tpu_torch/ops/megakernel.py:
+// trace_lanes_plain through the scene's packing
+// (ops/megakernel_geom.py:geometry_grads_plain).
 //
-// What bounds it on this card: divergent per-lane ALU work, about 4 Dual
-// walks per distinct sphere a path touches, not bytes. The per-light flags
-// are a 32-bit mask: the wrapper refuses NEE scenes of more than 31 lights,
-// as the reference's int32 mask cannot hold them.
+// What bounds it on this card: divergent per-thread ALU work on registers,
+// not bytes (the packed scene is a few KB, read through L1). One thread per
+// lane would give 12,288 threads at the gradient path's 128x96, 16 spp (96
+// CTAs of 4 warps on 132 SMs), each looping over its 16 samples, and one
+// scalar-Dual replay per direction would compute the same value part
+// (nearest scan, shadow rays, PCG4D, shading) four times per slot.
+//
+// This design:
+//  * one replay per slot carries all four directions: the walk runs on
+//    walk::Dual4 (a value and four tangents, each tangent rounding as a
+//    scalar Dual walk of that direction would), so the value part is
+//    computed once per slot;
+//  * one work item per (lane, sample): 196,608 threads at the gradient
+//    path's shape. A CTA takes kItems consecutive items (a lane's samples
+//    are adjacent), walks each item's discovery on its own thread, and
+//    pushes one entry per filled slot into a queue in shared memory; then
+//    the CTA's threads take the queue's entries in turn, one Dual4 replay
+//    each. The entries of one item are adjacent, so a warp replays the same
+//    few paths, and threads whose item tracked fewer spheres do not idle
+//    while another item's slots run;
+//  * a grid of at most kMaxCtas CTAs, each striding over the chunks of
+//    kItems, so the per-CTA tables stay small at any size.
+// The table is a per-CTA [S, 4] in shared memory (8 KB at S = 512; the
+// queue adds 4 bytes per item and slot, at most 20 KB), added to with shared
+// atomics; each CTA writes its own to out[blockIdx.x] and one
+// torch.sum finishes it. Moving samples and slots onto threads changes only
+// the order of those float additions. The per-light flags are a 32-bit
+// mask: the wrapper refuses NEE scenes of more than 31 lights, as the
+// reference's int32 mask cannot hold them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC
@@ -39,39 +60,45 @@ using namespace walk;
 
 constexpr int TRACK_SLOTS = 8;
 
-// packed values; the tangent is the one-hot direction `dirp` of sphere
-// `jsel` (-1: none)
+// packed values; the tangents are the four one-hot directions (cx, cy, cz,
+// r^2) of sphere `jsel` (-1: none)
 struct InjectReader {
   Layout s;
-  int jsel, dirp;
-  __device__ Dual plane(int i, int f) const { return {__ldg(s.planes + i * PL + f), 0.0f}; }
-  __device__ Dual sphere(int i, int f) const {
+  int jsel;
+  __device__ Dual4 plane(int i, int f) const { return mk<Dual4>(__ldg(s.planes + i * PL + f)); }
+  __device__ Dual4 sphere(int i, int f) const {
     const float* rec = s.spheres + i * (s.rigid ? SP : SPG);
-    float d = 0.0f;
+    Dual4 x = mk<Dual4>(__ldg(rec + f));
     if (i == jsel) {
-      if (s.rigid)
-        d = f == dirp ? 1.0f : 0.0f;
-      else if (f >= 9 && f < 12 && dirp < 3)
-        d = -__ldg(rec + 3 * (f - 9) + dirp);  // invt = -inv3 c
-      else if (f == 12 && dirp == 3)
-        d = 1.0f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (s.rigid)
+          x.d[p] = f == p ? 1.0f : 0.0f;
+        else if (f >= 9 && f < 12 && p < 3)
+          x.d[p] = -__ldg(rec + 3 * (f - 9) + p);  // invt = -inv3 c
+        else if (f == 12 && p == 3)
+          x.d[p] = 1.0f;
+      }
     }
-    return {__ldg(rec + f), d};
+    return x;
   }
-  __device__ Dual mat(int i, int f) const { return {__ldg(s.mats + i * MA + f), 0.0f}; }
-  __device__ Dual light(int i, int f) const {
+  __device__ Dual4 mat(int i, int f) const { return mk<Dual4>(__ldg(s.mats + i * MA + f)); }
+  __device__ Dual4 light(int i, int f) const {
     const float v = __ldg(s.lights + i * LI + f);
-    float d = 0.0f;
+    Dual4 x = mk<Dual4>(v);
     if (jsel >= 0 && light_obj(s, i) == s.P + jsel) {
-      if (f < 3)
-        d = f == dirp ? 1.0f : 0.0f;
-      else if (f == 3 && dirp == 3)  // radius = sqrt(r^2): the clamped rule
-        d = v * v > 0.0f ? 0.5f * rsqrtf(fmaxf(v * v, 1e-12f)) : 0.0f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (f < 3)
+          x.d[p] = f == p ? 1.0f : 0.0f;
+        else if (f == 3 && p == 3)  // radius = sqrt(r^2): the clamped rule
+          x.d[p] = v * v > 0.0f ? 0.5f * rsqrtf(fmaxf(v * v, 1e-12f)) : 0.0f;
+      }
     }
-    return {v, d};
+    return x;
   }
-  __device__ Dual bg(int f) const { return {__ldg(s.bg + f), 0.0f}; }
-  __device__ Dual cam(int f) const { return {__ldg(s.cam + f), 0.0f}; }
+  __device__ Dual4 bg(int f) const { return mk<Dual4>(__ldg(s.bg + f)); }
+  __device__ Dual4 cam(int f) const { return mk<Dual4>(__ldg(s.cam + f)); }
 };
 
 // the discovery walk: the distinct spheres hit, the lights touched
@@ -122,56 +149,90 @@ struct Discovery : NoHooks {
   }
 };
 
-// a replay: g . d(radiance) summed over the walk
+// a replay: g . d(radiance)/dp summed over the walk, for the four directions
 struct Replay : NoHooks {
   V3<float> g;
-  float dL;
-  __device__ void term(const V3<Dual>& t) { dL = dL + (g.x * t.x.d + g.y * t.y.d + g.z * t.z.d); }
-  __device__ void miss(const V3<Dual>&, const V3<Dual>& t) { term(t); }
-  __device__ void nee_sum(const V3<Dual>& t) { term(t); }
-  __device__ void emission(int, const V3<Dual>&, const V3<Dual>& t) { term(t); }
+  float dL[4];
+  __device__ void term(const V3<Dual4>& t) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) dL[p] = dL[p] + (g.x * t.x.d[p] + g.y * t.y.d[p] + g.z * t.z.d[p]);
+  }
+  __device__ void miss(const V3<Dual4>&, const V3<Dual4>& t) { term(t); }
+  __device__ void nee_sum(const V3<Dual4>& t) { term(t); }
+  __device__ void emission(int, const V3<Dual4>&, const V3<Dual4>& t) { term(t); }
 };
 
-__global__ void __launch_bounds__(kBlock) geometry_grads(const float* __restrict__ scn,
-                                                         const float* __restrict__ g, float* __restrict__ out,
-                                                         const MegaParams p) {
-  extern __shared__ float tab[];  // [S, 4]
-  for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) tab[i] = 0.0f;
-  __syncthreads();
+constexpr int kItems = 128;      // (lane, sample) items per CTA chunk, one discovery walk per thread
+constexpr int kMaxCtas = 4096;   // ops/megakernel_geom.py sizes out[] with the same rule (MAX_CTAS)
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < p.n_lanes) {
-    const uint32_t lane = static_cast<uint32_t>(p.lane0 + idx);
-    const Layout s = layout(scn, p);
-    const ValueReader vr = {s};
-    const int n = p.n_lanes;
-    Discovery disc;
-    disc.s = &s;
-    disc.nee_on = p.nee_on != 0;
-    Replay rep;
-    rep.g = {g[idx], g[n + idx], g[2 * n + idx]};
-    for (int sample = 0; sample < p.eff; ++sample) {
+// out[] holds one table per CTA of this grid
+__host__ __device__ inline int n_ctas(const MegaParams& p) {
+  const long long chunks = (static_cast<long long>(p.n_lanes) * p.eff + kItems - 1) / kItems;
+  return static_cast<int>(chunks < kMaxCtas ? chunks : kMaxCtas);
+}
+
+// 4 CTAs an SM: ptxas then fits the Dual4 walk in 128 registers with spills
+// to L1 (1,200 bytes of stores); at 255 registers (2 CTAs, 88 bytes) and at
+// 168 (3 CTAs) the kernel ran 9% and 2% slower (H100, PERF.md)
+__global__ void __launch_bounds__(kItems, 4) geometry_grads(const float* __restrict__ scn, const float* __restrict__ g,
+                                                         float* __restrict__ out, const MegaParams p) {
+  extern __shared__ float tab[];  // [S, 4], then the queue: int [kItems * slots per item]
+  int* queue = reinterpret_cast<int*>(tab + p.n_spheres * 4);
+  __shared__ int queued;
+  for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) tab[i] = 0.0f;
+
+  const Layout s = layout(scn, p);
+  const ValueReader vr = {s};
+  const int n = p.n_lanes;
+  const long long n_items = static_cast<long long>(n) * p.eff;
+  const long long n_chunks = (n_items + kItems - 1) / kItems;
+  for (long long chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
+    if (threadIdx.x == 0) queued = 0;
+    __syncthreads();  // the table's zeros and the queue's count are in place
+    // discovery: the item's distinct spheres and lights -> one queue entry
+    // per filled slot, (thread << 16) | sphere, the item's entries adjacent
+    const long long item = chunk * kItems + threadIdx.x;
+    if (item < n_items) {
+      const int idx = static_cast<int>(item / p.eff), sample = static_cast<int>(item % p.eff);
+      const uint32_t lane = static_cast<uint32_t>(p.lane0 + idx);
+      Discovery disc;
+      disc.s = &s;
+      disc.nee_on = p.nee_on != 0;
       for (int k = 0; k < TRACK_SLOTS; ++k) disc.slots[k] = -1;
       disc.lflags = 0u;
       State<float> st;
       start(p, vr, lane, sample, st);
       while (bounce(p, s, vr, disc, lane, sample, st)) {
       }
-      int j = -1;
-      for (int slot = disc.first_valid(0, j); slot >= 0; slot = disc.first_valid(slot + 1, j)) {
-        for (int dirp = 0; dirp < 4; ++dirp) {
-          const InjectReader rd = {s, j, dirp};
-          State<Dual> sd;
-          start(p, rd, lane, sample, sd);
-          rep.dL = 0.0f;
-          while (bounce(p, s, rd, rep, lane, sample, sd)) {
-          }
-          atomicAdd(tab + j * 4 + dirp, rep.dL);
-        }
-      }
+      int j = -1, filled = 0;
+      for (int slot = disc.first_valid(0, j); slot >= 0; slot = disc.first_valid(slot + 1, j)) ++filled;
+      int at = atomicAdd(&queued, filled);
+      for (int slot = disc.first_valid(0, j); slot >= 0; slot = disc.first_valid(slot + 1, j))
+        queue[at++] = (static_cast<int>(threadIdx.x) << 16) | j;
     }
+    __syncthreads();
+    // replays: one Dual4 walk per queued (item, sphere)
+    const int total = queued;
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int entry = queue[e];
+      const int jsel = entry & 0xFFFF;
+      const long long it = chunk * kItems + (entry >> 16);
+      const int idx = static_cast<int>(it / p.eff), sample = static_cast<int>(it % p.eff);
+      const uint32_t lane = static_cast<uint32_t>(p.lane0 + idx);
+      const InjectReader rd = {s, jsel};
+      Replay rep;
+      rep.g = {g[idx], g[n + idx], g[2 * n + idx]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rep.dL[q] = 0.0f;
+      State<Dual4> sd;
+      start(p, rd, lane, sample, sd);
+      while (bounce(p, s, rd, rep, lane, sample, sd)) {
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) atomicAdd(tab + jsel * 4 + q, rep.dL[q]);
+    }
+    __syncthreads();  // the queue is read before the next chunk refills it
   }
-  __syncthreads();
   float* mine = out + static_cast<size_t>(blockIdx.x) * p.n_spheres * 4;
   for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) mine[i] = tab[i];
 }
@@ -179,15 +240,17 @@ __global__ void __launch_bounds__(kBlock) geometry_grads(const float* __restrict
 }  // namespace
 
 // Launch K4 on `stream`: g[3, n_lanes] is the cotangent of the lanes' sums;
-// out[n_cta, S, 4] receives one table (d/dcx, d/dcy, d/dcz, d/d(r^2) per
-// sphere) per CTA of 128 lanes. Returns cudaGetLastError() (0 on success).
+// out[n_ctas, S, 4] receives one table (d/dcx, d/dcy, d/dcz, d/d(r^2) per
+// sphere) per CTA, n_ctas = min(ceil(n_lanes * eff / 128), 4096). Returns
+// cudaGetLastError() (0 on success).
 extern "C" int kajo_geometry_grads(const float* scene, const float* g, float* out, const MegaParams* params,
                                    void* stream) {
   const MegaParams p = *params;
-  if (p.n_lanes > 0 && p.n_spheres > 0) {
-    const int blocks = (p.n_lanes + kBlock - 1) / kBlock;
-    const size_t shared = static_cast<size_t>(p.n_spheres) * 4 * sizeof(float);
-    geometry_grads<<<blocks, kBlock, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
+  if (p.n_lanes > 0 && p.n_spheres > 0 && p.eff > 0) {
+    const int slots = TRACK_SLOTS + (p.nee_on ? p.n_lights : 0);
+    const size_t shared = static_cast<size_t>(p.n_spheres) * 4 * sizeof(float) + static_cast<size_t>(kItems) *
+                                                                                    slots * sizeof(int);
+    geometry_grads<<<n_ctas(p), kItems, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

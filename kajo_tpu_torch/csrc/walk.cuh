@@ -1,6 +1,7 @@
 // The path walk of the gradient kernels (K2, K3, K4), templated on its
-// scalar: float (K3, K4's discovery walk), or Dual, a value with its
-// forward-mode tangent (K2, K4's replays).
+// scalar: float (K3, K4's discovery walk), Dual, a value with its
+// forward-mode tangent (K2), or Dual4, a value with four tangents (K4's
+// replays: the four directions of one sphere in one walk).
 //
 // It is the walk of csrc/megakernel.cu (K1) written once more: K1 built on
 // this file computes the same bits but took 0.2-2.6% longer per pass on an
@@ -20,8 +21,8 @@
 //
 // A kernel supplies two policies:
 //  * a Reader, which returns a scene field as a scalar: the packed value,
-//    and for a Dual its tangent (K2: the packed tangent; K4: a one-hot
-//    injection into one sphere's records);
+//    and for a Dual its tangent (K2: the packed tangent; K4: the four
+//    one-hot directions of one sphere's records);
 //  * Hooks, told of each radiance term and of the events Path Replay needs
 //    (K2 sums the terms; K3 peels them off R_rem; K4 sums g . d(term)).
 //
@@ -138,6 +139,200 @@ __device__ __forceinline__ Dual fmin_(Dual a, float b) {
   return {fminf(a.v, b), a.v < b ? a.d : (a.v > b ? 0.0f : 0.5f * a.d)};
 }
 
+// A value with N tangents (K4: the four directions cx, cy, cz, r^2 of one
+// sphere in one walk). Each tangent component takes exactly the float
+// operations of Dual's, so component k rounds as a Dual walk seeded with
+// direction k would; the value is computed once.
+template <int N>
+struct DualN {
+  float v;
+  float d[N];
+};
+
+template <int N>
+__device__ __forceinline__ DualN<N> operator+(DualN<N> a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator+(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = a.v + b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator+(float a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a + b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(DualN<N> a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = a.v - b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(float a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = -b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator-(DualN<N> a) {
+  DualN<N> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = -a.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator*(DualN<N> a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator*(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b;
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator*(float a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a * b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a * b.d[k];
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator/(DualN<N> a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a.v / b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator/(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = a.v / b;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] / b;
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> operator/(float a, DualN<N> b) {
+  DualN<N> r;
+  r.v = a / b.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = -(r.v * b.d[k]) / b.v;
+  return r;
+}
+
+using Dual4 = DualN<4>;
+
+template <>
+__device__ __forceinline__ Dual4 mk<Dual4>(float v) {
+  return {v, {0.0f, 0.0f, 0.0f, 0.0f}};
+}
+
+template <int N>
+__device__ __forceinline__ float val(DualN<N> x) {
+  return x.v;
+}
+
+template <int N>
+__device__ __forceinline__ DualN<N> safe_sqrt(DualN<N> x) {
+  const float slope = x.v > 0.0f ? 0.5f * rsqrtf(fmaxf(x.v, 1e-12f)) : 0.0f;
+  DualN<N> r;
+  r.v = safe_sqrt(x.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = slope * x.d[k];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ DualN<N> safe_pow(DualN<N> x, DualN<N> n) {
+  DualN<N> r;
+  r.v = safe_pow(x.v, n.v);
+  float dx = 0.0f, dn = 0.0f;
+  if (x.v > 0.0f) {
+    dx = n.v * safe_pow(x.v, n.v - 1.0f);
+    dn = r.v * logf(x.v);
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = dx * x.d[k] + dn * n.d[k];
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ DualN<N> rsqrt_(DualN<N> x) {
+  DualN<N> r;
+  r.v = rsqrtf(x.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = x.d[k] * (-0.5f * (r.v / x.v));
+  return r;
+}
+
+// the tangent of the branch taken; a tie splits it (0.5 (a + b), per component)
+template <int N>
+__device__ __forceinline__ DualN<N> pick(bool take_a, bool take_b, DualN<N> a, DualN<N> b, float v) {
+  DualN<N> r;
+  r.v = v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = take_a ? a.d[k] : (take_b ? b.d[k] : 0.5f * (a.d[k] + b.d[k]));
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> fmax_(DualN<N> a, DualN<N> b) {
+  return pick(a.v > b.v, a.v < b.v, a, b, fmaxf(a.v, b.v));
+}
+template <int N>
+__device__ __forceinline__ DualN<N> fmin_(DualN<N> a, DualN<N> b) {
+  return pick(a.v < b.v, a.v > b.v, a, b, fminf(a.v, b.v));
+}
+template <int N>
+__device__ __forceinline__ DualN<N> fmax_(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = fmaxf(a.v, b);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.v > b ? a.d[k] : (a.v < b ? 0.0f : 0.5f * a.d[k]);
+  return r;
+}
+template <int N>
+__device__ __forceinline__ DualN<N> fmin_(DualN<N> a, float b) {
+  DualN<N> r;
+  r.v = fminf(a.v, b);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.v < b ? a.d[k] : (a.v > b ? 0.0f : 0.5f * a.d[k]);
+  return r;
+}
+
 // ------------------------------------------------------------- vectors
 template <class T>
 struct V3 {
@@ -174,6 +369,10 @@ __device__ __forceinline__ V3<T> vconst(float x, float y, float z) {
 }
 __device__ __forceinline__ V3<float> val3(V3<float> a) { return a; }
 __device__ __forceinline__ V3<float> val3(V3<Dual> a) { return {a.x.v, a.y.v, a.z.v}; }
+template <int N>
+__device__ __forceinline__ V3<float> val3(V3<DualN<N>> a) {
+  return {a.x.v, a.y.v, a.z.v};
+}
 
 // unit vector; 0 for a zero vector
 template <class T>
@@ -440,6 +639,13 @@ __device__ __forceinline__ int nearest(const Layout& s, const R&, V3<float> o, V
 }
 template <class R>
 __device__ __forceinline__ int nearest(const Layout& s, const R& rd, V3<Dual> o, V3<Dual> d, Dual& t, V3<Dual>& n) {
+  const int obj = trace<false>(s, val3(o), val3(d)).obj;
+  if (obj >= 0) hit_at(s, rd, obj, o, d, t, n);
+  return obj;
+}
+template <class R, int N>
+__device__ __forceinline__ int nearest(const Layout& s, const R& rd, V3<DualN<N>> o, V3<DualN<N>> d, DualN<N>& t,
+                                       V3<DualN<N>>& n) {
   const int obj = trace<false>(s, val3(o), val3(d)).obj;
   if (obj >= 0) hit_at(s, rd, obj, o, d, t, n);
   return obj;

@@ -87,6 +87,7 @@ class PreparedScene:
     stream_boxes: Optional[torch.Tensor] = None   # [S_pad / 128, 8] block AABB, min det, 0
     stream_perm: Optional[torch.Tensor] = None    # [S_pad] packed row -> sphere index
     stream_inv_perm: Optional[torch.Tensor] = None  # [S] sphere index -> packed row, int32
+    stream_sboxes: Optional[torch.Tensor] = None  # [ceil(S_pad / 1024), 8] superblocks of 8 blocks (K5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,9 +166,9 @@ def prepare_scene(scene: Scene) -> PreparedScene:
     )
     if st.shape[0] > STREAM_THRESHOLD:
         # pack once per prepare: the wavefront traces many times per pass
-        packed, boxes, perm, inv_perm = build_stream_scene(prep)
+        packed, boxes, perm, inv_perm, sboxes = build_stream_scene(prep)
         prep = dataclasses.replace(prep, stream_packed=packed, stream_boxes=boxes, stream_perm=perm,
-                                   stream_inv_perm=inv_perm)
+                                   stream_inv_perm=inv_perm, stream_sboxes=sboxes)
     return prep
 
 

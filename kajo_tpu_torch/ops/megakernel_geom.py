@@ -10,12 +10,14 @@ hits (visibility is discrete, so detached), so reverse mode over every
 sphere's centre and r² collapses to a few forward-mode directions per path.
 K4 walks each sample once to record the distinct non-light spheres it hits
 (up to ``TRACK_SLOTS``) and, with NEE on, which lights it touched (its NEE
-term counted, or it hit the light); then, for each recorded sphere j and
-each direction p in (cx, cy, cz, r²), it replays the same path with K2's
-dual walk, the tangent injected only into sphere j's records: the rigid
-record's field p, or the general record's invt (d invt/dc = -inv3) and r²,
-and the light record when j is a light. The shadow ray is detached. The
-kernel's fourth direction is d/d(r²), chained to d/dr = 2r d/d(r²).
+term counted, or it hit the light); then, for each recorded sphere j, it
+replays the same path once with four tangents, the directions p in (cx, cy,
+cz, r²) injected only into sphere j's records: the rigid record's field p,
+or the general record's invt (d invt/dc = -inv3) and r², and the light
+record when j is a light. The shadow ray is detached. The kernel's fourth
+direction is d/d(r²), chained to d/dr = 2r d/d(r²). One thread walks one
+(lane, sample) item's discovery; a CTA queues its items' (item, sphere)
+replays and spreads them over its threads (``csrc/megakernel_geom.cu``).
 
 The plain version is reverse-mode autodiff of the plain walk through
 ``pack_scene(prepare_scene(.))`` to ``sphere_transform[:, :3, 3]`` and
@@ -39,10 +41,12 @@ from ..models.integrator import RenderConfig
 from ..scene.types import Scene
 from . import megakernel
 from .megakernel import MegaPass, call_kernel, prepare_pass
-from .megakernel_grad import BLOCK, cotangent_lanes, scene_vjp_plain
+from .megakernel_grad import cotangent_lanes, scene_vjp_plain
 
 TRACK_SLOTS = 8
 MAX_NEE_LIGHTS = 31  # the reference's int32 light bitmask
+ITEMS_PER_CTA = 128  # (lane, sample) items per CTA chunk of K4
+MAX_CTAS = 4096  # K4's grid: one table each; a CTA strides over the chunks beyond
 
 kernel_launches = 0
 
@@ -118,7 +122,7 @@ def launch_kernel(ps: MegaPass, g: torch.Tensor, seed: int) -> torch.Tensor:
     d/dcz, d/d(r²) per sphere. Each CTA writes its own table; one sum over
     the CTAs finishes it."""
     global kernel_launches
-    n_cta = -(-ps.n_lanes // BLOCK)
+    n_cta = min(-(-ps.n_lanes * ps.eff // ITEMS_PER_CTA), MAX_CTAS)  # the kernel's n_ctas
     out = torch.empty((n_cta, ps.n_spheres, 4), dtype=torch.float32, device=ps.packed.device)
     call_kernel("megakernel_geom.cu", "kajo_geometry_grads", (ps.packed, g, out), ps.params(seed))
     kernel_launches += 1

@@ -18,8 +18,12 @@ and their plain versions scan the blocks in this packed order, skip a block
 whose box a ray does not enter below its live bound, and keep a strict
 ``t < t_best``, so the first packed index wins a tie; they report packed
 indices, which ``nearest_sphere`` maps back to scene numbering through the
-padded ``perm``. ``NEAREST_DESIGN`` (or ``nearest_design(...)``, or
-``design=``) routes the nearest hit through K7, K8 or K9 instead, which
+padded ``perm``. K5 gives each ray eight lanes of a warp, lets a warp
+decide a block for its four rays, and tests the superblocks of
+``build_stream_scene`` (8 blocks each) before their blocks; none of that
+changes a ray's answer (the note at the top of ``csrc/stream_trace.cu``
+says why). ``NEAREST_DESIGN`` (or ``nearest_design(...)``, or ``design=``)
+routes the nearest hit through K7, K8 or K9 instead, which
 decide per tile of rays which blocks the whole tile scans (see the section
 of the designs below); shadow rays of rigid scenes stay on K6 under every
 design, as in kajo_tpu.
@@ -176,7 +180,7 @@ def morton_order(centers: torch.Tensor) -> torch.Tensor:
 def build_stream_scene(prep):
     """Morton-sorted packed spheres and per-block AABBs for K5/K6 ->
     (packed [S_pad, 4|14], boxes [S_pad/128, 8], perm [S_pad] int64,
-    inv_perm [S] int32).
+    inv_perm [S] int32, sboxes [ceil(S_pad/1024), 8]).
 
     ``perm`` maps a packed row to its sphere, ``inv_perm`` a sphere to its
     packed row. Pad rows are unhittable (r² = -1), their ``perm`` entries
@@ -186,7 +190,9 @@ def build_stream_scene(prep):
     below; 1 for rigid scenes), 0. The boxes are inflated by 1e-4 x (scene
     extent + 1) so f32 rounding in the slab test never culls a true hit. Whole blocks are ordered by their squared
     distance from the camera, nearest first, so primary and near-surface
-    rays tighten their bound on the first blocks they visit."""
+    rays tighten their bound on the first blocks they visit. ``sboxes`` are
+    the superblocks of :func:`v2_superblocks` over the packed order, which
+    K5 tests before each run of 8 blocks."""
     rigid = prep.rigid
     s = prep.sphere_center.shape[0]
     dev = prep.sphere_center.device
@@ -234,15 +240,19 @@ def build_stream_scene(prep):
     # slot past the end, which is dropped
     inv_perm = torch.zeros(s + 1, dtype=torch.int32, device=dev)
     inv_perm[torch.where(rows < s, perm, s)] = torch.arange(s_pad, dtype=torch.int32, device=dev)
-    return packed.contiguous(), boxes.contiguous(), perm.contiguous(), inv_perm[:s].contiguous()
+    boxes = boxes.contiguous()
+    return packed.contiguous(), boxes, perm.contiguous(), inv_perm[:s].contiguous(), v2_superblocks(boxes)
 
 
 # -------------------------------------------------- plain PyTorch versions
-def _slab(o, d, boxes, pairs=True):
+def _slab(o, d, boxes, pairs=True, superblock=False):
     """The kernels' slab test, the same float operations (BIG, not inf, so
     that 0 * (1/d) stays 0 on a face; fmin/fmax as the kernels' fminf/fmaxf)
     -> (t_enter, entered): every ray against every block's box ([N, B]), or,
-    with ``pairs`` False, ray i against box i of ``boxes`` [N, 8] ([N])."""
+    with ``pairs`` False, ray i against box i of ``boxes`` [N, 8] ([N]).
+    ``superblock``: K5's test of a superblock (``csrc/stream_trace.cu``:
+    ``super_may_hit``), where an axis whose t0 or t1 is NaN constrains
+    nothing, so that it never rejects what a member block's test admits."""
     inv = torch.where(d == 0, BIG, 1.0 / torch.where(d == 0, 1.0, d))
     shape = (o.shape[0], boxes.shape[0]) if pairs else (o.shape[0],)
     t_enter = torch.zeros(shape, dtype=torch.float32, device=o.device)
@@ -254,8 +264,12 @@ def _slab(o, d, boxes, pairs=True):
         inside = (oa >= lo) & (oa <= hi)
         t0 = (lo - oa) * ia
         t1 = (hi - oa) * ia
-        near = torch.where(da == 0, torch.where(inside, -BIG, BIG), torch.fmin(t0, t1))
-        far = torch.where(da == 0, torch.where(inside, BIG, -BIG), torch.fmax(t0, t1))
+        near, far = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        if superblock:
+            nan = torch.isnan(t0) | torch.isnan(t1)
+            near, far = torch.where(nan, -BIG, near), torch.where(nan, BIG, far)
+        near = torch.where(da == 0, torch.where(inside, -BIG, BIG), near)
+        far = torch.where(da == 0, torch.where(inside, BIG, -BIG), far)
         t_enter = torch.fmax(t_enter, near)
         t_exit = torch.fmin(t_exit, far)
     return t_enter, t_exit >= t_enter
@@ -284,8 +298,10 @@ def _block_scan(rigid, o, d, packed, boxes, visit):
             visit(slice(r0, r0 + oc.shape[0]), blk, t, valid, entered[:, blk], t_enter[:, blk] * boxes[blk, 6])
 
 
-def nearest_sphere_plain(rigid: bool, o, d, bound, packed, boxes):
+def nearest_sphere_plain(rigid: bool, o, d, bound, packed, boxes, sboxes=None):
     """K5's function in plain PyTorch -> (t [N] f32, idx [N] int32).
+    ``sboxes`` (K5's superblocks) is taken as :func:`launch_nearest` takes
+    it and changes no answer.
 
     The kernel's scan: blocks in packed order, a block skipped for a ray
     whose slab test against its live bound fails, a strict ``t < t_best``
@@ -641,36 +657,33 @@ def _check_trace(rigid: bool, o, d, bound, packed, boxes):
     return n, n_blocks
 
 
-def _launch(occl: bool, rigid: bool, o, d, bound, packed, boxes, excl=None):
-    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
-    t_out = torch.empty((n,), dtype=torch.float32, device=o.device)
-    if occl:
-        _check("excl", excl, torch.int32, (n,))
-        _run("stream_trace.cu", "kajo_stream_occluded", o, o, d, bound, packed, boxes, t_out, excl, n, n_blocks,
-             int(rigid))
-        return t_out
-    idx_out = torch.empty((n,), dtype=torch.int32, device=o.device)
-    _run("stream_trace.cu", "kajo_stream_nearest", o, o, d, bound, packed, boxes, t_out, idx_out, n, n_blocks,
-         int(rigid))
-    return t_out, idx_out
-
-
-def launch_nearest(rigid: bool, o, d, bound, packed, boxes):
+def launch_nearest(rigid: bool, o, d, bound, packed, boxes, sboxes=None):
     """Launch K5 on the current stream -> (t [N], packed idx [N] int32),
-    the function of :func:`nearest_sphere_plain`."""
+    the function of :func:`nearest_sphere_plain`. ``sboxes``: the scene's
+    superblocks (``PreparedScene.stream_sboxes``), built here from
+    ``boxes`` when None."""
     global nearest_launches
-    out = _launch(False, rigid, o, d, bound, packed, boxes)
+    n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
+    sboxes = v2_superblocks(boxes) if sboxes is None else sboxes
+    _check("sboxes", sboxes, torch.float32, (-(-n_blocks // (V2_SUPER // BLOCK)), 8))
+    t_out, idx_out = _outputs(o)
+    _run("stream_trace.cu", "kajo_stream_nearest", o, o, d, bound, packed, boxes, sboxes, t_out, idx_out, n, n_blocks,
+         int(rigid))
     nearest_launches += 1
-    return out
+    return t_out, idx_out
 
 
 def launch_occluded(rigid: bool, o, d, t_cut, excl, packed, boxes):
     """Launch K6 on the current stream -> final bound [N], the function of
     :func:`occluded_sphere_plain`."""
     global occluded_launches
-    out = _launch(True, rigid, o, d, t_cut, packed, boxes, excl)
+    n, n_blocks = _check_trace(rigid, o, d, t_cut, packed, boxes)
+    _check("excl", excl, torch.int32, (n,))
+    t_out = torch.empty((n,), dtype=torch.float32, device=o.device)
+    _run("stream_trace.cu", "kajo_stream_occluded", o, o, d, t_cut, packed, boxes, t_out, excl, n, n_blocks,
+         int(rigid))
     occluded_launches += 1
-    return out
+    return t_out
 
 
 def _outputs(o):
@@ -792,8 +805,9 @@ def nearest_sphere(prep, o, d, t_max=None, design=None):
         "v4": (nearest_sphere_plain, launch_nearest), "v1": (nearest_v1_plain, launch_nearest_v1),
         "v2": (nearest_v2_plain, launch_nearest_v2), "v3": (nearest_v3_plain, launch_nearest_v3),
     }[design[:2]]
-    fn = plain if cpu else launch
-    t, idx = fn(prep.rigid, o, d, bound, packed, boxes, *design_lists(design, o, d, bound, boxes))
+    # K5 takes the scene's superblocks; the plain K5 needs none
+    lists = (prep.stream_sboxes,) if design == "v4" and not cpu else design_lists(design, o, d, bound, boxes)
+    t, idx = (plain if cpu else launch)(prep.rigid, o, d, bound, packed, boxes, *lists)
     found = idx >= 0
     idx_orig = torch.where(found, prep.stream_perm[idx.clamp_min(0).long()], -1)
     return torch.where(found, t, float("inf")), idx_orig

@@ -121,6 +121,29 @@ def test_stream_kernels_match_plain(device, jitter):
     assert (stream_trace.nearest_launches, stream_trace.occluded_launches) == (before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
+def test_nearest_kernel_in_any_ray_order(device, jitter):
+    """K5 on the rays as given, reversed and in a random order (other rays
+    share each ray's warp) equals its plain version on every ray, bit for
+    bit, with the scene's superblocks and with those its wrapper builds."""
+    prep = geometry.prepare_scene(random_spheres_scene(20000, seed=3, extent=30.0, scale_jitter=jitter, device=device))
+    o, d, bound = _stream_rays(prep)
+    n = o.shape[0]
+    orders = {"as given": torch.arange(n, device=device),
+              "reversed": torch.arange(n - 1, -1, -1, device=device),
+              "random": torch.tensor(np.random.default_rng(7).permutation(n), device=device)}
+    for label, order in orders.items():
+        for sboxes in (prep.stream_sboxes, None):
+            args = (prep.rigid, o[order].contiguous(), d[order].contiguous(), bound[order].contiguous(),
+                    prep.stream_packed, prep.stream_boxes, sboxes)
+            t_k, i_k = stream_trace.launch_nearest(*args)
+            t_p, i_p = stream_trace.nearest_sphere_plain(*args)
+            torch.cuda.synchronize()
+            assert int((i_p >= 0).sum()) > 1000, label
+            assert torch.equal(i_k, i_p), label
+            assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), label
+
+
 @pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
 @pytest.mark.parametrize("design", ["v1", "v1-frustum", "v1-near-far", "v2", "v3"])
 def test_design_kernels_match_plain(device, design, jitter):
@@ -230,6 +253,23 @@ def test_grad_kernels_match_plain(device, name, config):
     _within(megakernel_geom.geometry_grads(scene, 31, g, W, H, SPP, config),
             megakernel_geom.geometry_grads_plain(scene, 31, g, W, H, SPP, config))
     assert (megakernel_grad.kernel_launches, megakernel_geom.kernel_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name", ["caustics.json", "scaled.json"], ids=["caustics", "scaled"])
+def test_geometry_kernel_matches_plain_64x48(device, name):
+    """K4 at chip_smoke.py's 64x48, 4 spp, depth 3: a grid of 96 CTAs of
+    (lane, sample) items, against autodiff of the plain walk."""
+    from kajo_tpu_torch.ops import megakernel_geom
+
+    scene = parser.load(os.path.join(DATA, name), 64 / 48, device)
+    config = RenderConfig(max_depth=3)
+    g = torch.rand((48, 64, 3), generator=torch.Generator().manual_seed(0)).to(device)
+    before = megakernel_geom.kernel_launches
+    got = megakernel_geom.geometry_grads(scene, 2024, g, 64, 48, 4, config)
+    want = megakernel_geom.geometry_grads_plain(scene, 2024, g, 64, 48, 4, config)
+    torch.cuda.synchronize()
+    assert megakernel_geom.kernel_launches == before + 1
+    _within(got, want)
 
 
 def test_inverse_step_on_the_card(device, monkeypatch):

@@ -68,8 +68,10 @@ def test_build_stream_scene_bit_equal(case, reference):
     prep = _port_prep(case, ref)
     assert prep.rigid == (case == "rigid")
     np.testing.assert_array_equal(stream_trace.morton_order(prep.sphere_center).numpy(), ref["morton"])
-    packed, boxes, sperm, inv_perm = stream_trace.build_stream_scene(prep)
+    packed, boxes, sperm, inv_perm, sboxes = stream_trace.build_stream_scene(prep)
     assert packed.dtype == boxes.dtype == torch.float32
+    # K5's superblocks: a field of its own beside those kajo_tpu's V4 builds
+    assert torch.equal(sboxes, stream_trace.v2_superblocks(boxes))
     np.testing.assert_array_equal(packed.numpy().view(np.int32), ref["packed"].view(np.int32))
     np.testing.assert_array_equal(boxes.numpy().view(np.int32), ref["boxes"].view(np.int32))
     np.testing.assert_array_equal(sperm.numpy(), ref["perm"])
