@@ -51,10 +51,13 @@ with a non-zero exit when it fails:
    there); at 64x48, 4 spp, max_depth 3 on caustics (rigid), scaled.json
    (general), the two-light scene with one-light NEE and caustics with full
    MIS; random_spheres_scene(40, seed=11, extent=10, n_lights=2) (K = 43)
-   for K3, a 200-sphere field for K4, and K4's slot rule on the mirror
-   cluster at max_depth 20. Bars: K2's image equals K1's bit for bit and its
-   tangent is within a relative L2 gap of 1e-4; every field of K3 and K4
-   within 1e-4 max|plain| + 1e-7, and on the mirror cluster, whose
+   for K3, a 200-sphere field for K4, K4's slot rule on the mirror
+   cluster at max_depth 20, and K2 on caustics at 16x12, 144 spp (its
+   samples in two waves of 72) and at 8x6, 81 spp, max_depth 100 (a
+   100 KB CTA of 41 threads, two waves). Bars: K2's image equals K1's
+   bit for bit and its tangent is within a relative L2 gap of 1e-4; every
+   field of K3 and K4 within 1e-4 max|plain| + 1e-7, and on the mirror
+   cluster, whose
    gradients span many decades, every sphere's entries within 1e-4 of the
    sum of their own terms (K2 per sphere and direction); all finite. Print
    how K4's largest gradient on the cluster grows with max_depth;
@@ -66,10 +69,11 @@ with a non-zero exit when it fails:
    finite; the sphere's offset, and under mega the ground's albedo error,
    smaller at the end than at the start; ms per step and the share of
    K1/K3/K4 in a mega step and of K2 in a mega-fwd step (CUDA events), and
-   K2/K3/K4 per launch at that shape with their bounds: these go to the
-   kernels line, with the shape;
+   K2/K3/K4 per launch at that shape with their bounds, registers and
+   spills: these go to the kernels line, with the shape;
 13. time K2, K3 and K4 per launch with CUDA events at the main render
-   path's shape, caustics 512x384, 16 spp, with their bounds, and hold K2
+   path's shape, caustics 512x384, 16 spp, with their bounds, registers and
+   spills, and hold K2
    there (image equal to K1's, tangent gap <= 1e-4); the plain K3 and K4
    are not run there: their reverse-mode graphs would hold ~2,000 saved
    tensors of 0.79 MB per iteration over ~80 iterations, more than the
@@ -101,7 +105,9 @@ peaks), counted on this run's data. A sphere test's ray-independent part
 (cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
 the rest once per ray and sphere. K1 counts the ray-object tests of its
 pass (shading not counted); K2 the same plus the tangent operations of the
-winner's test per path ray (2 per test operation); K3 two walks per sample.
+winner's test per path ray (2 per test operation); K3 two walks per sample,
+and its bytes the packed scene, the cotangent and one (K+1) x 9 table (the
+function's least work, whatever the design's per-CTA tables).
 K4 counts the function's least work, whatever the design: one walk of each
 sample on values (its ray-object tests), plus, per path ray and sphere the
 sample tracks (at most 8 non-light ones and the lights it hits; lights
@@ -841,7 +847,6 @@ def grad_bounds(ps, seed: int) -> dict:
     once = ps.n_spheres * OPS_SPHERE_RIGID_ONCE if ps.rigid else 0
     walk_ops = (stats["rays"] + stats["shadow_rays"]) * per_ray
     lanes_b = 4 * ps.n_lanes
-    n_cta = -(-ps.n_lanes // 128)
     fpb = ps.packed.numel() * 4
     nee_lights = (1 if ps.one_light else ps.n_lights) if ps.nee_on else 0
     k4_tangent = 2 * per_test + OPS_SHADE_TANGENT + nee_lights * OPS_NEE_TANGENT  # per direction
@@ -854,13 +859,18 @@ def grad_bounds(ps, seed: int) -> dict:
     }
     bytes_ = {
         "K2": 2 * fpb + 6 * lanes_b,
-        "K3": fpb + 3 * lanes_b + n_cta * (ps.n_planes + ps.n_spheres + 1) * 9 * 4,
+        "K3": fpb + 3 * lanes_b + (ps.n_planes + ps.n_spheres + 1) * 9 * 4,
         "K4": fpb + 3 * lanes_b + ps.n_spheres * 4 * 4,
     }
     print(f"gradient walks at {ps.width}x{ps.height} {ps.spp}spp depth {ps.config.max_depth}: {stats['rays']} path + "
           f"{stats['shadow_rays']} shadow rays per walk set, {rays_x_spheres:.0f} path rays x tracked spheres, "
           f"{per_ray} FP32 ops per ray, K4 {k4_tangent} tangent ops per direction, path ray and tracked sphere")
     return {k: (*bound(bytes_[k], ops[k]), bytes_[k], ops[k]) for k in ops}
+
+
+# each gradient kernel's source and the name of its entry, for ptxas' report
+GRAD_ENTRIES = {"K2": ("megakernel_jvp.cu", "megakernel_jvp"), "K3": ("megakernel_grad.cu", "material_grads"),
+                "K4": ("megakernel_geom.cu", "geometry_grads")}
 
 
 def gradient_phases(dev, card: str) -> list:
@@ -890,6 +900,9 @@ def gradient_phases(dev, card: str) -> list:
         ("random_spheres_scene(200)", random_spheres_scene(200, seed=5, extent=12.0, n_lights=2, aspect_ratio=gw / gh,
                                                            device=dev), gw, gh, gspp, cfg, "4"),
         ("mirror cluster", cluster, gw, gh, gspp, RenderConfig(max_depth=20), "4"),
+        ("caustics, K2 in two waves", parser.load(caustics, 16 / 12, dev), 16, 12, 144, cfg, "2"),
+        ("caustics, K2 at depth 100", parser.load(caustics, 8 / 6, dev), 8, 6, 81, RenderConfig(max_depth=100),
+         "2"),
         (inv_label, build_test_scene(INV_W / INV_H, dev), INV_W, INV_H, INV_SPP, inv_cfg, "234"),
     ]
     worst = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
@@ -917,8 +930,10 @@ def gradient_phases(dev, card: str) -> list:
             same = torch.equal(sums.view(torch.int32), k1.view(torch.int32))
             gap = rel_l2(sums_dot, want_dot)
             finite = bool(torch.isfinite(sums_dot).all())
+            plan = megakernel.jvp_plan(ps.n_lanes, ps.eff, config.max_depth)
             print(f"K2 {label}: image == K1's (bits) {same}; tangent relative L2 gap {gap:.3e} (<= {TANGENT_BAR}); "
-                  f"finite={finite}")
+                  f"finite={finite}; plan: {plan.per_block} sample(s) a thread, CTAs of {plan.lanes_per_cta} "
+                  f"lane(s) x {plan.wave} thread(s), {plan.waves} wave(s), {plan.shared} B of shared memory")
             if not (same and gap <= TANGENT_BAR and finite):
                 fail(f"K2 {label}")
             worst["K2"] = max(worst["K2"], (sums_dot - want_dot).abs().max().item())
@@ -974,11 +989,13 @@ def gradient_phases(dev, card: str) -> list:
           + f"; engine mega-fwd step {fwd_ms:.3f} ms, K2 {k2_ms:.4f} ms per launch (6 per step: "
           f"{100 * 6 * k2_ms / fwd_ms:.1f}%)")
     ms = {"K2": k2_ms, "K3": share["K3"], "K4": share["K4"]}
+    usage = {k: ptxas_usage(source, entry) for k, (source, entry) in GRAD_ENTRIES.items()}
     bounds = grad_bounds(ps, 5)
     for k in ("K2", "K3", "K4"):
         b_ms, by, n_bytes, n_ops = bounds[k]
         print(f"timing {k} {inv_label} on {card}: kernel {ms[k]:.4f} ms per launch, plain {plain_ms[k]:.1f} ms, "
-              f"bound {b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {ms[k] / b_ms:.0f}x the bound")
+              f"bound {b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {ms[k] / b_ms:.0f}x the bound; "
+              f"{usage[k][0]} registers, {usage[k][1]} B spill stores")
 
     # 13. K2, K3, K4 at the main render path's shape
     w, h, spp = MAIN_W, MAIN_H, MAIN_SPP
@@ -1012,7 +1029,8 @@ def gradient_phases(dev, card: str) -> list:
     for k in ("K2", "K3", "K4"):
         b_ms, by, n_bytes, n_ops = big_bounds[k]
         print(f"timing {k} caustics {w}x{h} {spp}spp on {card}: kernel {big_ms[k]:.4f} ms per launch, bound "
-              f"{b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {big_ms[k] / b_ms:.0f}x the bound"
+              f"{b_ms:.5f} ms ({by}: {n_bytes:.4g} B, {n_ops:.4g} FP32 ops), {big_ms[k] / b_ms:.0f}x the bound; "
+              f"{usage[k][0]} registers, {usage[k][1]} B spill stores"
               + (f", plain {k2_plain_ms:.1f} ms" if k == "K2" else
                  " (the plain version's reverse-mode graph at this size would not fit in the card's memory)"))
     for source in ("megakernel_jvp.cu", "megakernel_grad.cu", "megakernel_geom.cu"):
@@ -1042,8 +1060,8 @@ def gradient_phases(dev, card: str) -> list:
             "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
             "library_ms": None,  # no PyTorch call computes a gradient pass
-            **(dict(zip(("registers", "spills"), ptxas_usage("megakernel_geom.cu", "geometry_grads")))
-               if k == "K4" else {}),
+            "registers": usage[k][0],
+            "spills": usage[k][1],
         }
         for k, (name, source, replaces, launches) in meta.items()
     ]

@@ -6,10 +6,13 @@
     scene; above ``geometry.STREAM_THRESHOLD`` spheres it traces through the
     streaming kernels K5/K6.
 
-``auto`` picks ``mega`` where the megakernel takes the scene, else ``fast``.
-Both run on the scene's device: the CUDA kernels on a GPU, their plain
-PyTorch versions on the CPU. The JAX package's ``parity`` engine comes with
-a later slice of the port, and asking for it raises.
+``auto`` follows the reference's rule on the port's device: ``mega`` for a
+scene on the CUDA device that the megakernel takes (the reference: on the
+TPU), else ``fast``, whose vectorised wavefront is the faster plain path on
+the CPU. An explicit engine runs on the scene's device: the CUDA kernels on
+a GPU, their plain PyTorch versions on the CPU. The JAX package's
+``parity`` engine comes with a later slice of the port, and asking for it
+raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ ENGINES = ("auto", "mega", "fast")
 
 def select_engine(scene: Scene, requested: str = "auto") -> str:
     if requested == "auto":
-        return "mega" if megakernel.supports(scene) else "fast"
+        return "mega" if scene.device.type == "cuda" and megakernel.supports(scene) else "fast"
     if requested == "mega":
         if not megakernel.supports(scene):
             raise ValueError(

@@ -360,10 +360,83 @@ def scene_zero_tangent(scene: Scene) -> Scene:
     return map_tensors(torch.zeros_like, scene)
 
 
+JVP_MAX_THREADS = 128  # a CTA of K2
+JVP_RESIDENT_THREADS = 67584  # 132 SMs x 4 CTAs x 128 threads: below, K2 takes a thread a sample
+JVP_SHARED_LIMIT = 232448  # bytes of shared memory a CTA may use on the H100 (227 KB)
+
+
+def sample_terms(max_depth: int) -> int:
+    """Radiance terms one sample hands over at most: max_depth + 1
+    vertices, each an NEE sum and an emission term, but the last neither
+    scatters nor, if it missed, emits."""
+    return 2 * max(max_depth, 0) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class JvpPlan:
+    """How K2 covers the lanes' samples; ``jvp_plan`` in
+    ``csrc/megakernel_jvp.cu`` computes the same. A lane's eff samples split
+    into ``blocks`` blocks of ``per_block`` consecutive samples (1 or eff),
+    one thread each; a CTA of ``threads`` = ``lanes_per_cta`` x ``wave``
+    threads walks ``wave`` blocks of each of its lanes at once, ``waves``
+    times. The lane's first block sums its terms itself; every later one
+    logs up to ``log_terms`` terms."""
+
+    eff: int  # samples a lane
+    per_block: int
+    blocks: int
+    log_terms: int
+    lanes_per_cta: int
+    wave: int
+    waves: int
+
+    @property
+    def threads(self) -> int:
+        return self.lanes_per_cta * self.wave
+
+    @property
+    def shared(self) -> int:
+        """Bytes: per thread its log, value and tangent sums and count; per
+        lane its running value and tangent sums."""
+        return 4 * (self.threads * (3 * self.log_terms + 7) + 6 * self.lanes_per_cta)
+
+    def n_ctas(self, n_lanes: int) -> int:
+        return -(-n_lanes // self.lanes_per_cta)
+
+    def item(self, cta, wave, thread):
+        """(lane index, block) of thread ``thread`` of CTA ``cta`` in wave
+        ``wave`` (ints or integer tensors): it walks the block's samples
+        block * per_block .. min((block + 1) * per_block, eff) - 1 if the
+        lane index is below n_lanes."""
+        return cta * self.lanes_per_cta + thread // self.wave, wave * self.wave + thread % self.wave
+
+
+def jvp_plan(n_lanes: int, eff: int, max_depth: int) -> JvpPlan:
+    """K2's plan: one thread a sample where the lanes alone would leave some
+    of the card's resident threads idle (JVP_RESIDENT_THREADS), else one
+    thread a lane, with no log; as many threads a CTA as fit in 128 and its
+    shared memory (whole warps where at least one fits), all of a lane's
+    blocks in one wave where they fit, else in equal waves of one lane.
+    Raises ValueError where not even one thread's log fits."""
+    per_block = 1 if n_lanes < JVP_RESIDENT_THREADS else eff
+    blocks = eff // per_block
+    log_terms = sample_terms(max_depth) if blocks > 1 else 0
+    cap = min(JVP_SHARED_LIMIT // (4 * (3 * log_terms + 13)), JVP_MAX_THREADS)
+    if cap >= 32:
+        cap = cap // 32 * 32
+    if cap < 1:
+        raise ValueError(f"the forward-mode kernel's term log takes max_depth <= 9682, got {max_depth}")
+    if blocks <= cap:
+        return JvpPlan(eff, per_block, blocks, log_terms, cap // blocks, blocks, 1)
+    waves = -(-blocks // cap)
+    return JvpPlan(eff, per_block, blocks, log_terms, 1, -(-blocks // waves), waves)
+
+
 def launch_kernel_jvp(ps: MegaPass, packed_dot: torch.Tensor, seed: int):
     """Launch the forward-mode kernel K2 -> ([3, n_lanes] sums, their
     tangents)."""
     global jvp_launches
+    jvp_plan(ps.n_lanes, ps.eff, ps.config.max_depth)  # raises where the kernel would refuse
     out = torch.empty((2, 3, ps.n_lanes), dtype=torch.float32, device=ps.packed.device)
     call_kernel("megakernel_jvp.cu", "kajo_megakernel_jvp", (ps.packed, packed_dot, out), ps.params(seed))
     jvp_launches += 1
@@ -622,6 +695,7 @@ def trace_lanes_plain(
     stats: dict | None = None,
     tracked: torch.Tensor | None = None,
     hit_log: list | None = None,
+    term_log: list | None = None,
 ) -> torch.Tensor:
     """The kernel's lane loop, vectorised over lanes -> [3, n_lanes] sums.
 
@@ -639,7 +713,9 @@ def trace_lanes_plain(
     The geometry plain version asks for more:
     ``tracked`` (bool [n_lanes, eff, S]) detaches, per lane and sample, the
     records of the spheres it does not track (the geometry kernel's slot
-    rule); ``hit_log`` receives (sample, obj, active) of every iteration."""
+    rule); ``hit_log`` receives (sample, obj, active) of every iteration;
+    ``term_log`` receives (sample, mask, term) of every radiance term, in
+    the order the sums take them (term [3] of tensors, added where mask)."""
     cfg = ps.config
     s = ps.packed
     dev = s.device
@@ -769,6 +845,11 @@ def trace_lanes_plain(
             pdf = pdf + torch.where(ok, 1.0 / solid_angle(dist, r[3]), 0.0)
         return pdf
 
+    def add_term(r3, sample, mask, term):
+        if term_log is not None:
+            term_log.append((sample, mask, term))
+        return _where(mask, _add(r3, term), r3)
+
     sample = zi.clone()
     depth = zi.clone()
     o, d = camera_ray(sample)
@@ -807,7 +888,7 @@ def trace_lanes_plain(
         t3 = _where(misp & active, _mul(t3, _scale(pfcos, w)), t3)
 
         # miss -> background; the path ends below since it did not hit
-        r3 = _where(active & ~was_hit, _add(r3, _mul(t3, bg)), r3)
+        r3 = add_term(r3, sample, active & ~was_hit, _mul(t3, bg))
         on_path = active & was_hit
 
         mat = mat_table[obj.clamp_min(0)]
@@ -906,7 +987,7 @@ def trace_lanes_plain(
                 one = const(1.0)
                 for li, r in enumerate(lights):
                     nee = _add(nee, nee_light(r, us[5 + 3 * li], us[6 + 3 * li], us[7 + 3 * li], one))
-            r3 = _where(scatter, _add(r3, _mul(t3, nee)), r3)
+            r3 = add_term(r3, sample, scatter, _mul(t3, nee))
 
         # continuation sample
         u1, u2 = us[3], us[4]
@@ -958,7 +1039,7 @@ def trace_lanes_plain(
         fcos = tuple(_ColourFactor.apply(m_, s_cont) for m_ in _where(m_lam, md, ms))
 
         t3 = _where(m_trans, _mul(t3, fcos), t3)
-        r3 = _where(emitter, _add(r3, _mul(_where(survive, t3, tk), me)), r3)
+        r3 = add_term(r3, sample, emitter, _mul(_where(survive, t3, tk), me))
         continuing = survive & (m_trans | (pdf_b != 0))
         if cfg.regen_threshold > 0.0:
             tmax = torch.maximum(torch.maximum(t3[0], t3[1]), t3[2])

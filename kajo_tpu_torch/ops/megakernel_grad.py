@@ -14,6 +14,13 @@ their coefficients directly. The coin probabilities are detached, so
 transparency, IOR and exponent get no gradient, and K3, like the JAX kernel,
 ignores ``regen_threshold``.
 
+K3 walks one (lane, sample) item per thread, both walks of its sample, a
+warp on one sample of 32 adjacent lanes, and adds to a (K+1) x 9 table per
+CTA; beyond MAX_CTAS chunks of ITEMS_PER_CTA items its grid is
+RESIDENT_CTAS CTAs, each striding over the chunks (``n_ctas``,
+``item_at``: the kernel's rule), and one sum over the CTAs' tables
+finishes the gradient.
+
 The plain version is reverse-mode autodiff of the plain walk
 (:func:`~.megakernel.trace_lanes_plain`) through
 ``pack_scene(prepare_scene(.))``, read at the colours and the background.
@@ -33,7 +40,10 @@ from . import megakernel
 from .megakernel import MAX_KERNEL_OBJECTS, MegaPass, call_kernel, prepare_pass, render_pass_megakernel
 
 MAX_GRAD_OBJECTS = MAX_KERNEL_OBJECTS
-BLOCK = 128  # lanes per CTA of the gradient kernels
+ITEMS_PER_CTA = 128  # (lane, sample) items per CTA chunk of K3
+MAX_CTAS = 4096  # K3's grid: one chunk a CTA up to this many chunks
+RESIDENT_CTAS = 528  # beyond: 132 SMs x 4 CTAs, all resident, striding over the chunks
+LANE_GROUP = 32  # lanes whose same sample a warp of K3 walks
 _MATERIAL_LEAVES = ("diffuse", "specular", "emission")
 
 kernel_launches = 0
@@ -100,12 +110,34 @@ def _table(scene: Scene, tab: torch.Tensor) -> dict:
     }
 
 
+def n_items(n_lanes: int, eff: int) -> int:
+    """K3's items: the lanes rounded up to whole groups of LANE_GROUP, x eff."""
+    return -(-n_lanes // LANE_GROUP) * LANE_GROUP * eff
+
+
+def n_ctas(n_lanes: int, eff: int) -> int:
+    """K3's grid (``n_ctas`` in ``csrc/megakernel_grad.cu``): one CTA per
+    chunk of ITEMS_PER_CTA items up to MAX_CTAS chunks, else RESIDENT_CTAS;
+    CTA b walks the chunks b, b + n_ctas, ..."""
+    chunks = -(-n_items(n_lanes, eff) // ITEMS_PER_CTA)
+    return chunks if chunks <= MAX_CTAS else RESIDENT_CTAS
+
+
+def item_at(item, eff: int):
+    """Item (an int or an integer tensor) -> (lane index, sample), as the
+    kernel's ``item_at``: the eff samples of a group of LANE_GROUP lanes,
+    sample-major, so a warp walks one sample of 32 adjacent lanes (a lane
+    index >= n_lanes walks nothing)."""
+    r = item % (LANE_GROUP * eff)
+    return item // (LANE_GROUP * eff) * LANE_GROUP + r % LANE_GROUP, r // LANE_GROUP
+
+
 def launch_kernel(ps: MegaPass, g: torch.Tensor, seed: int) -> torch.Tensor:
     """Launch K3 on the current stream -> [K+1, 9] table: cols 0-2
     diffuse, 3-5 specular, 6-8 emission per object, row K background. Each
     CTA writes its own table; one sum over the CTAs finishes it."""
     global kernel_launches
-    n_cta = -(-ps.n_lanes // BLOCK)
+    n_cta = n_ctas(ps.n_lanes, ps.eff)
     out = torch.empty((n_cta, ps.n_planes + ps.n_spheres + 1, 9), dtype=torch.float32, device=ps.packed.device)
     call_kernel("megakernel_grad.cu", "kajo_material_grads", (ps.packed, g, out), ps.params(seed))
     kernel_launches += 1

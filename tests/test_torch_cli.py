@@ -82,9 +82,19 @@ def test_gl_renderer_raises(tmp_path, capsys):
 @pytest.mark.parametrize("engine,slice_", [("parity", "integrator")])
 def test_unported_engines_name_their_slice(engine, slice_):
     scene = parser.load(CAUSTICS, 1.0, device="cpu")
-    assert select_engine(scene) == "mega"
+    assert select_engine(scene) == "fast"
     with pytest.raises(ValueError, match=slice_):
         select_engine(scene, engine)
+
+
+def test_auto_engine_on_the_cpu_is_fast():
+    """The reference's rule: mega only on the accelerator, so a CPU scene
+    the megakernel takes runs the wavefront; an explicit mega still runs
+    the megakernel's plain version there."""
+    scene = parser.load(CAUSTICS, 1.0, device="cpu")
+    assert scene.device.type == "cpu" and megakernel.supports(scene)
+    assert select_engine(scene) == "fast"
+    assert select_engine(scene, "mega") == "mega"
 
 
 def test_auto_engine_takes_fast_above_the_megakernel():

@@ -241,6 +241,43 @@ def test_jvp_kernel_matches_plain(device, name, config):
     assert ((sums_dot - want_dot).norm() / want_dot.norm()).item() <= 1e-4
 
 
+@pytest.mark.parametrize(
+    "w,h,spp,config",
+    [
+        (16, 12, 144, RenderConfig(max_depth=3)),  # a lane's 144 samples in two waves of 72
+        (8, 6, 81, RenderConfig(max_depth=100)),  # a CTA of 41 threads, 100 KB of log, two waves
+        (W, H, SPP, RenderConfig(max_depth=20, full_mis=True)),  # two terms at every vertex
+    ],
+    ids=["two-waves", "depth100-two-waves", "caustics-depth20-full-mis"],
+)
+def test_jvp_kernel_in_waves_and_deep(device, w, h, spp, config):
+    """K2 where a lane's samples need more than one wave of its log, or the
+    log takes many terms: the image still equals K1's bit for bit."""
+    scene = parser.load(os.path.join(DATA, "caustics.json"), w / h, device)
+    tan = megakernel.scene_zero_tangent(scene)
+    tan.sphere_transform[0, 0, 3] = 1.0
+    tan.materials.diffuse[0, 1] = 1.0
+    ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, w, h, spp, config)
+    if spp > SPP:
+        assert megakernel.jvp_plan(ps.n_lanes, ps.eff, config.max_depth).waves == 2
+    sums, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, 8)
+    k1 = megakernel.launch_kernel(ps, 8)
+    want, want_dot = megakernel.trace_lanes_plain_jvp(ps, packed_dot, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(sums.view(torch.int32), k1.view(torch.int32))
+    assert torch.isfinite(sums_dot).all()
+    assert ((sums_dot - want_dot).norm() / want_dot.norm()).item() <= 1e-4
+
+
+def test_auto_engine_on_the_card_is_mega(device):
+    """The reference's rule: engine auto takes mega for a scene on the
+    accelerator that the megakernel takes, and fast above it."""
+    from kajo_tpu_torch.models.engine import select_engine
+
+    assert select_engine(parser.load(os.path.join(DATA, "caustics.json"), 1.0, device)) == "mega"
+    assert select_engine(random_spheres_scene(600, seed=1, extent=10.0, device=device)) == "fast"
+
+
 @pytest.mark.parametrize("name,config", GRAD_CASES, ids=GRAD_IDS)
 def test_grad_kernels_match_plain(device, name, config):
     from kajo_tpu_torch.ops import megakernel_geom, megakernel_grad
