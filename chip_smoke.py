@@ -19,7 +19,11 @@ with a non-zero exit when it fails:
    data/caustics.json, counting K1's launches from 0: one per pass, and a
    PNG that decodes to finite values with a positive mean;
 6. time K1 and its plain version at the main path's shape with CUDA events
-   and compare their images there;
+   and hold their sums equal bit for bit there; print K1's regime there (a
+   thread a lane, or a thread a (lane, sample) under its sample plan) and
+   ptxas' registers and spills of each of its instantiations; and hold the
+   plan constants of ops/megakernel.py equal to those K1 and K2 were built
+   with;
 7. the big-scene configuration (random_spheres_scene(100_000, seed=0,
    extent=60), 128x96, 4 spp, depth 2, one-light NEE), rigid and with
    scale_jitter=0.5: record every K5 (nearest hit) and K6 (occlusion) call
@@ -32,7 +36,10 @@ with a non-zero exit when it fails:
    CTA (the previous K5's group) and per 4-ray warp (K5's), in the call's
    order, and per 4 rays in an order sorted by direction octant and origin
    Morton cell (sorted_order, the order K5 does not take): what the
-   warp-level cull removes;
+   warp-level cull removes; per K6 call the same for the blocks K6 must
+   test (each ray's blocks entered below its cut, or, once occluded, up to
+   the block of its first occluder, via first_occluder_block), per 128-ray
+   CTA (the previous K6's group) and per 4-ray warp (K6's);
 8. drive the big-scene path, the CLI's main() with --procedural 100000 -w
    128 -h 96 --spp 4 --depth 2 --passes 8, counting K5's and K6's launches
    from 0: both must launch, and the PNG must decode to finite values with
@@ -54,13 +61,17 @@ with a non-zero exit when it fails:
    for K3, a 200-sphere field for K4, K4's slot rule on the mirror
    cluster at max_depth 20, and K2 on caustics at 16x12, 144 spp (its
    samples in two waves of 72) and at 8x6, 81 spp, max_depth 100 (a
-   100 KB CTA of 41 threads, two waves). Bars: K2's image equals K1's
+   100 KB CTA of 41 threads, two waves). Bars: K1's sums equal its plain
+   version's bit for bit wherever K2 is held (K1 there takes a thread a
+   (lane, sample)), K2's image equals K1's
    bit for bit and its tangent is within a relative L2 gap of 1e-4; every
    field of K3 and K4 within 1e-4 max|plain| + 1e-7, and on the mirror
    cluster, whose
    gradients span many decades, every sphere's entries within 1e-4 of the
-   sum of their own terms (K2 per sphere and direction); all finite. Print
-   how K4's largest gradient on the cluster grows with max_depth;
+   sum of their own terms (K2 per sphere and direction); all finite; and
+   K3 and K4 give the same bits when called twice on the same inputs (their
+   tables are exact sums, csrc/exact_sum.cuh). Print how K4's largest
+   gradient on the cluster grows with max_depth;
 12. drive the gradient path, ``kajo_tpu_torch.inverse_rendering.main`` at
    128x96, 16 spp, max_depth 4, 100 steps, counting launches from 0: engine
    mega (sphere transform and albedos) must launch 2 K1 + 2 K3 + 2 K4 per
@@ -68,7 +79,8 @@ with a non-zero exit when it fails:
    (plus the 3 K1 renders of the target and the two PNGs); every loss
    finite; the sphere's offset, and under mega the ground's albedo error,
    smaller at the end than at the start; ms per step and the share of
-   K1/K3/K4 in a mega step and of K2 in a mega-fwd step (CUDA events), and
+   K1/K3/K4 in a mega step and of K2 in a mega-fwd step (CUDA events), K1's
+   regime at that shape, and
    K2/K3/K4 per launch at that shape with their bounds, registers and
    spills: these go to the kernels line, with the shape;
 13. time K2, K3 and K4 per launch with CUDA events at the main render
@@ -104,8 +116,18 @@ and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
 peaks), counted on this run's data. A sphere test's ray-independent part
 (cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
 the rest once per ray and sphere. K1 counts the ray-object tests of its
-pass (shading not counted); K2 the same plus the tangent operations of the
-winner's test per path ray (2 per test operation); K3 two walks per sample,
+pass and its shading, at one FP32 operation per float operation of
+csrc/megakernel.cu (transcendentals one each, integer work and compares
+none): per sample its camera ray (OPS_CAMERA), per path vertex its hit
+point and deferred MIS weight (OPS_VERTEX), per miss its background term
+(OPS_MISS), per hit its roulette, lottery, reflection and emission term
+(OPS_HIT), per vertex that continues its BSDF's sample, pdf and f cos
+(OPS_LAMBERT, OPS_PHONG, OPS_MIRROR, OPS_TRANSMIT), and per NEE light
+sampled its light sample, solid angle, pdfs, weight and term (OPS_NEE),
+the vertices counted by the plain walk's stats (its bound from the tests
+alone is printed beside it); K2 counts K1's tests plus the tangent
+operations of the winner's test per path ray (2 per test operation); K3
+two walks per sample,
 and its bytes the packed scene, the cotangent and one (K+1) x 9 table (the
 function's least work, whatever the design's per-CTA tables).
 K4 counts the function's least work, whatever the design: one walk of each
@@ -167,6 +189,11 @@ OPS_SPHERE_RIGID_ONCE = 6
 # (~151), and per NEE light sampled its sample point, solid angle, pdfs,
 # f cos, weight and term (~134)
 OPS_SHADE_TANGENT, OPS_NEE_TANGENT = 150, 130
+# FP32 operations of K1's shading (csrc/megakernel.cu walk, one per float
+# operation): per camera ray, path vertex, miss, hit, continuation by each
+# BSDF and NEE light sampled (see the module docstring)
+OPS_CAMERA, OPS_VERTEX, OPS_MISS, OPS_HIT = 35, 8, 6, 46
+OPS_LAMBERT, OPS_PHONG, OPS_MIRROR, OPS_TRANSMIT, OPS_NEE = 69, 96, 13, 36, 92
 # no phase runs this long; a stall dumps every thread's stack and ends the run
 STALL_S = 600
 BIG_W, BIG_H, BIG_SPP, BIG_D, BIG_N = 128, 96, 4, 2, 100_000  # BASELINE.md config 5
@@ -379,6 +406,18 @@ def kernel_vs_plain(kind, args):
     return t_k, t_p, None, torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
 
 
+def occluded_needed(args) -> torch.Tensor:
+    """The blocks one K6 call must test per ray -> bool [N, B]: an
+    unoccluded ray every block it enters below its cut, an occluded one the
+    block of its first occluder."""
+    rigid, o, d, bound_, excl, packed, boxes = args[:7]
+    first = first_occluder_block(rigid, o, d, bound_, excl, packed, boxes)
+    needed = blocks_entered(o, d, bound_, boxes) & (first < 0)[:, None]
+    rows = torch.nonzero(first >= 0).squeeze(1)
+    needed[rows, first[rows]] = True
+    return needed & (bound_ > 0)[:, None]
+
+
 def call_bound(kind, args, t_final):
     """(bytes, FP32 operations) one K5/K6 call must move and do on these
     inputs; see the module docstring."""
@@ -387,13 +426,8 @@ def call_bound(kind, args, t_final):
         needed = blocks_entered(o, d, t_final, boxes)
         per_live_ray, per_ray = 24, 4 + 4 + 4  # o, d; bound in, t and idx out
     else:
-        rigid, o, d, bound_, excl, packed, boxes = args
-        first = first_occluder_block(rigid, o, d, bound_, excl, packed, boxes)
-        # an unoccluded ray must test every block it enters below its cut,
-        # an occluded one the block of its first occluder
-        needed = blocks_entered(o, d, bound_, boxes) & (first < 0)[:, None]
-        rows = torch.nonzero(first >= 0).squeeze(1)
-        needed[rows, first[rows]] = True
+        rigid, o, d, bound_, excl, packed, boxes = args[:7]
+        needed = occluded_needed(args)
         per_live_ray, per_ray = 24 + 4, 4 + 4  # o, d, excl; cut in, bound out
     live = bound_ > 0
     needed &= live[:, None]
@@ -442,24 +476,72 @@ def blocks_scanned(args, t_final) -> str:
             f"{union_per_group(needed, sorted_order(o, d, boxes), 4):.2f}; of {boxes.shape[0]} blocks")
 
 
-def ptxas_usage(source: str, entry: str) -> tuple:
-    """(most registers, most bytes of spill stores) over the kernel entries
-    of csrc/<source> whose mangled name holds ``entry``, from ptxas' report."""
+def occluded_blocks_scanned(args) -> str:
+    """The blocks a K6 call must test, per ray and per group of rays that
+    decide a block together (see phase 7)."""
+    needed = occluded_needed(args)
+    given = torch.arange(needed.shape[0], device=needed.device)
+    return (f"per ray {needed.sum(1).float().mean().item():.2f} (the bound's count); in the call's order per 128-ray "
+            f"CTA (the previous K6's group) {union_per_group(needed, given, 128):.2f}, per 4-ray warp (K6's) "
+            f"{union_per_group(needed, given, 4):.2f}; of {needed.shape[1]} blocks")
+
+
+def ptxas_entries(source: str, entry: str) -> list:
+    """[(mangled name, registers, bytes of spill stores)] of each kernel
+    entry of csrc/<source> whose mangled name holds ``entry``."""
     from kajo_tpu_torch.ops import _nvcc
 
-    regs = spills = 0
-    current = ""
+    rows, current = {}, ""
     for line in _nvcc.library_path(source).with_suffix(".log").read_text().splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
         if m:
             current = m.group(1)
         if entry not in current:
             continue
+        regs, spills = rows.get(current, (0, 0))
         m = re.search(r"(\d+) bytes spill stores", line)
         spills = max(spills, int(m.group(1))) if m else spills
         m = re.search(r"Used (\d+) registers", line)
         regs = max(regs, int(m.group(1))) if m else regs
-    return regs, spills
+        rows[current] = (regs, spills)
+    return [(name, *v) for name, v in rows.items()]
+
+
+def ptxas_usage(source: str, entry: str) -> tuple:
+    """(most registers, most bytes of spill stores) over the kernel entries
+    of csrc/<source> whose mangled name holds ``entry``, from ptxas' report."""
+    rows = ptxas_entries(source, entry)
+    return max((r for _, r, _ in rows), default=0), max((sp for _, _, sp in rows), default=0)
+
+
+def k1_regime(ps) -> str:
+    """K1's regime for a pass (megakernel.k1_plan, the kernel's rule)."""
+    from kajo_tpu_torch.ops import megakernel
+
+    plan = megakernel.k1_plan(ps.n_lanes, ps.eff, ps.config.max_depth)
+    if plan is None:
+        return f"a thread a lane ({ps.n_lanes} lanes)"
+    return (f"a thread a (lane, sample) ({ps.n_lanes} lanes x {ps.eff} samples): CTAs of {plan.lanes_per_cta} "
+            f"lane(s) x {plan.wave} thread(s), {plan.waves} wave(s), {plan.shared} B of shared memory")
+
+
+def k1_bound(ps, stats: dict):
+    """K1's bound on one pass's data (its ray-object tests and its shading,
+    see the module docstring), and the bound of its tests alone -> ((ms,
+    by), (ms, by), bytes, operations)."""
+    per_ray = ps.n_planes * OPS_PLANE + ps.n_spheres * (OPS_SPHERE_RIGID if ps.rigid else OPS_SPHERE_GENERAL)
+    once = ps.n_spheres * OPS_SPHERE_RIGID_ONCE if ps.rigid else 0
+    tests = (stats["rays"] + stats["shadow_rays"]) * per_ray + once
+    shading = (ps.n_lanes * ps.eff * OPS_CAMERA + stats["rays"] * OPS_VERTEX
+               + (stats["rays"] - stats["hits"]) * OPS_MISS + stats["hits"] * OPS_HIT
+               + stats["lambert"] * OPS_LAMBERT + stats["phong"] * OPS_PHONG + stats["mirror"] * OPS_MIRROR
+               + stats["transmit"] * OPS_TRANSMIT + stats["shadow_rays"] * OPS_NEE)
+    n_bytes = ps.packed.numel() * 4 + 12 * ps.n_lanes
+    print(f"K1 bound: {stats['rays']} path rays ({stats['hits']} hits; {stats['lambert']} lambert, "
+          f"{stats['phong']} phong, {stats['mirror']} mirror, {stats['transmit']} transmit) + "
+          f"{stats['shadow_rays']} shadow rays x {per_ray} FP32 ops of ray-object tests + {once} = {tests:.4g}, "
+          f"shading {shading:.4g} FP32 ops")
+    return bound(n_bytes, tests + shading), bound(n_bytes, tests), n_bytes, tests + shading
 
 
 def megakernel_phases(dev, card: str) -> dict:
@@ -528,12 +610,24 @@ def megakernel_phases(dev, card: str) -> dict:
         kern.T.reshape(h, w, 3) / ps.divisor,
         plain.T.reshape(h, w, 3) / ps.divisor,
     )
-    per_ray = ps.n_planes * OPS_PLANE + ps.n_spheres * (OPS_SPHERE_RIGID if ps.rigid else OPS_SPHERE_GENERAL)
-    once = ps.n_spheres * OPS_SPHERE_RIGID_ONCE if ps.rigid else 0
-    k1_bound = bound(ps.packed.numel() * 4 + 12 * ps.n_lanes,
-                     (k1_stats["rays"] + k1_stats["shadow_rays"]) * per_ray + once)
-    print(f"K1 bound: {k1_stats['rays']} path rays + {k1_stats['shadow_rays']} shadow rays x "
-          f"{per_ray} FP32 ops of ray-object tests + {once} -> {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+    k1_bits = torch.equal(kern.view(torch.int32), plain.view(torch.int32))
+    print(f"kernel vs plain caustics {w}x{h} {spp}spp: sums equal bit for bit {k1_bits}")
+    if not k1_bits:
+        fail(f"K1 against its plain version at caustics {w}x{h} {spp}spp (bits)")
+    for source, resident, floats in (("megakernel.cu", megakernel.K1_RESIDENT_THREADS, megakernel.K1_FLOATS),
+                                     ("megakernel_jvp.cu", megakernel.JVP_RESIDENT_THREADS, megakernel.JVP_FLOATS)):
+        built = megakernel.built_plan_constants(source)
+        mirror = (megakernel.PLAN_MAX_THREADS, megakernel.PLAN_SHARED_LIMIT, resident, *floats)
+        print(f"plan constants of {source}: built {built}, ops/megakernel.py {mirror}")
+        if built != mirror:
+            fail(f"ops/megakernel.py's plan constants against {source}'s")
+    (b_ms, by), (t_ms, t_by), n_bytes, n_ops = k1_bound(ps, k1_stats)
+    k1_usage = ptxas_entries("megakernel.cu", "megakernel_")
+    print(f"K1 at caustics {w}x{h} {spp}spp: {k1_regime(ps)}; bound {b_ms:.5f} ms ({by}: {n_bytes:.4g} B, "
+          f"{n_ops:.4g} FP32 ops), {min(ms, ms2) / b_ms:.0f}x; the tests alone {t_ms:.5f} ms ({t_by}), "
+          f"{min(ms, ms2) / t_ms:.0f}x")
+    for name, regs, spills in k1_usage:
+        print(f"K1 ptxas {name}: {regs} registers, {spills} B spill stores")
 
     return {
         "name": "megakernel",
@@ -544,9 +638,11 @@ def megakernel_phases(dev, card: str) -> dict:
         "max_abs_err": k1_max_abs,
         "ms": min(ms, ms2),
         "plain_ms": min(plain_ms, plain_ms2),
-        "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1],
+        "bound_ms": b_ms,
+        "bound_by": by,
         "library_ms": None,  # no single PyTorch call computes a path-traced pass
+        "tests_bound_ms": t_ms,  # the bound of its ray-object tests alone
+        **dict(zip(("registers", "spills"), ptxas_usage("megakernel.cu", "megakernel_"))),
     }
 
 
@@ -590,6 +686,8 @@ def hold_stream_calls(dev, jitter: float):
             fail(f"config 5 {label}: {kind} kernel and plain version differ on call {i}")
         if kind == "nearest":
             print(f"config 5 {label} call {i} blocks scanned: {blocks_scanned(args, out_p)}")
+        else:
+            print(f"config 5 {label} call {i} blocks scanned: {occluded_blocks_scanned(args)}")
         results.append(out_k)
     return scene, calls, results, worst
 
@@ -706,8 +804,7 @@ def big_scene_phases(dev, card: str):
             "max_abs_err": worst[kind],
             **{k: stream_rows[kind][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            **(dict(zip(("registers", "spills"), ptxas_usage("stream_trace.cu", "nearest_kernel")))
-               if kind == "nearest" else {}),
+            **dict(zip(("registers", "spills"), ptxas_usage("stream_trace.cu", f"{kind}_kernel"))),
         }
         for kind, launches in (("nearest", k5_launches), ("occluded", k6_launches))
     ], scenes
@@ -781,6 +878,16 @@ def hold_fields(label: str, got: dict, want: dict) -> float:
             fail(f"{label} {k}")
         worst = max(worst, err)
     return worst
+
+
+def hold_repeat(label: str, got: dict, again: dict) -> None:
+    """Check that a gradient kernel gave the same bits twice on the same
+    inputs (its tables are exact sums, csrc/exact_sum.cuh)."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k].view(torch.int32), again[k].view(torch.int32)) for k in got)
+    print(f"{label}: the same inputs twice give the same bits {same}")
+    if not same:
+        fail(f"{label}: two calls on the same inputs differ")
 
 
 def inverse_run(engine: str, card: str) -> dict:
@@ -921,7 +1028,12 @@ def gradient_phases(dev, card: str) -> list:
             ps, packed_dot = megakernel.prepare_pass_jvp(scene, tan, w, h, spp, config)
             k1 = megakernel.launch_kernel(ps, 2024)
             sums, sums_dot = megakernel.launch_kernel_jvp(ps, packed_dot, 2024)
+            k1_plain = megakernel.trace_lanes_plain(ps, 2024)
             torch.cuda.synchronize()
+            k1_same = torch.equal(k1.view(torch.int32), k1_plain.view(torch.int32))
+            print(f"K1 {label}: sums == its plain version's (bits) {k1_same}; {k1_regime(ps)}")
+            if not k1_same:
+                fail(f"K1 {label}")
             t0 = time.time()
             want, want_dot = megakernel.trace_lanes_plain_jvp(ps, packed_dot, 2024)
             torch.cuda.synchronize()
@@ -939,7 +1051,7 @@ def gradient_phases(dev, card: str) -> list:
             worst["K2"] = max(worst["K2"], (sums_dot - want_dot).abs().max().item())
         if "3" in kernels:
             got = megakernel_grad.material_grads(scene, 2024, g, w, h, spp, config)
-            torch.cuda.synchronize()
+            hold_repeat(f"K3 {label}", got, megakernel_grad.material_grads(scene, 2024, g, w, h, spp, config))
             t0 = time.time()
             want = megakernel_grad.material_grads_plain(scene, 2024, g, w, h, spp, config)
             torch.cuda.synchronize()
@@ -948,7 +1060,7 @@ def gradient_phases(dev, card: str) -> list:
             worst["K3"] = max(worst["K3"], hold_fields(f"K3 {label}", got, want))
         if "4" in kernels:
             got = megakernel_geom.geometry_grads(scene, 2024, g, w, h, spp, config)
-            torch.cuda.synchronize()
+            hold_repeat(f"K4 {label}", got, megakernel_geom.geometry_grads(scene, 2024, g, w, h, spp, config))
             t0 = time.time()
             want = megakernel_geom.geometry_grads_plain(scene, 2024, g, w, h, spp, config)
             torch.cuda.synchronize()
@@ -988,6 +1100,9 @@ def gradient_phases(dev, card: str) -> list:
           + ", ".join(f"{k} {v:.4f} ms (2 per step: {100 * 2 * v / step_ms:.1f}%)" for k, v in share.items())
           + f"; engine mega-fwd step {fwd_ms:.3f} ms, K2 {k2_ms:.4f} ms per launch (6 per step: "
           f"{100 * 6 * k2_ms / fwd_ms:.1f}%)")
+    print(f"K1 at {inv_label}: {k1_regime(ps)}; "
+          + "; ".join(f"{name} {regs} registers, {spills} B spill stores"
+                      for name, regs, spills in ptxas_entries("megakernel.cu", "megakernel_")))
     ms = {"K2": k2_ms, "K3": share["K3"], "K4": share["K4"]}
     usage = {k: ptxas_usage(source, entry) for k, (source, entry) in GRAD_ENTRIES.items()}
     bounds = grad_bounds(ps, 5)

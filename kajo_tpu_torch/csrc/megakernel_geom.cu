@@ -41,17 +41,20 @@
 //    while another item's slots run;
 //  * a grid of at most kMaxCtas CTAs, each striding over the chunks of
 //    kItems, so the per-CTA tables stay small at any size.
-// The table is a per-CTA [S, 4] in shared memory (8 KB at S = 512; the
+// The table is a per-CTA [S, 4] in shared memory, each cell an exact
+// fixed-point sum (csrc/exact_sum.cuh: 44 bytes a cell, 90 KB at S = 512; the
 // queue adds 4 bytes per item and slot, at most 20 KB), added to with shared
-// atomics; each CTA writes its own to out[blockIdx.x] and one
-// torch.sum finishes it. Moving samples and slots onto threads changes only
-// the order of those float additions. The per-light flags are a 32-bit
-// mask: the wrapper refuses NEE scenes of more than 31 lights, as the
-// reference's int32 mask cannot hold them.
+// integer atomics and rounded to a float once; each CTA writes its own to
+// out[blockIdx.x] and one torch.sum finishes it. So neither the order of the
+// replays nor that of the queue's entries changes a bit of the result, and
+// the same inputs give the same bits on every run. The per-light flags are
+// a 32-bit mask: the wrapper refuses NEE scenes of more than 31 lights, as
+// the reference's int32 mask cannot hold them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC
 
+#include "exact_sum.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -176,10 +179,11 @@ __host__ __device__ inline int n_ctas(const MegaParams& p) {
 // 168 (3 CTAs) the kernel ran 9% and 2% slower (H100, PERF.md)
 __global__ void __launch_bounds__(kItems, 4) geometry_grads(const float* __restrict__ scn, const float* __restrict__ g,
                                                          float* __restrict__ out, const MegaParams p) {
-  extern __shared__ float tab[];  // [S, 4], then the queue: int [kItems * slots per item]
-  int* queue = reinterpret_cast<int*>(tab + p.n_spheres * 4);
+  extern __shared__ unsigned long long smem[];  // the table's [S, 4] cells, then the queue: int [kItems * slots]
+  const exact_sum::Table tab = exact_sum::Table::at(smem, p.n_spheres * 4);
+  int* queue = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + exact_sum::bytes(p.n_spheres * 4));
   __shared__ int queued;
-  for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) tab[i] = 0.0f;
+  tab.zero(p.n_spheres * 4);
 
   const Layout s = layout(scn, p);
   const ValueReader vr = {s};
@@ -229,12 +233,12 @@ __global__ void __launch_bounds__(kItems, 4) geometry_grads(const float* __restr
       while (bounce(p, s, rd, rep, lane, sample, sd)) {
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) atomicAdd(tab + jsel * 4 + q, rep.dL[q]);
+      for (int q = 0; q < 4; ++q) tab.add(jsel * 4 + q, rep.dL[q]);
     }
     __syncthreads();  // the queue is read before the next chunk refills it
   }
   float* mine = out + static_cast<size_t>(blockIdx.x) * p.n_spheres * 4;
-  for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) mine[i] = tab[i];
+  for (int i = threadIdx.x; i < p.n_spheres * 4; i += blockDim.x) mine[i] = tab.value(i);
 }
 
 }  // namespace
@@ -248,8 +252,9 @@ extern "C" int kajo_geometry_grads(const float* scene, const float* g, float* ou
   const MegaParams p = *params;
   if (p.n_lanes > 0 && p.n_spheres > 0 && p.eff > 0) {
     const int slots = TRACK_SLOTS + (p.nee_on ? p.n_lights : 0);
-    const size_t shared = static_cast<size_t>(p.n_spheres) * 4 * sizeof(float) + static_cast<size_t>(kItems) *
-                                                                                    slots * sizeof(int);
+    const size_t shared = exact_sum::bytes(p.n_spheres * 4) + static_cast<size_t>(kItems) * slots * sizeof(int);
+    const int err = exact_sum::allow_shared(geometry_grads, shared);
+    if (err) return err;
     geometry_grads<<<n_ctas(p), kItems, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
   }
   return static_cast<int>(cudaGetLastError());

@@ -15,12 +15,14 @@
 // kajo_tpu_torch/ops/megakernel.py:trace_lanes_plain
 // (ops/megakernel_grad.py:material_grads_plain).
 //
-// Accumulation: a per-CTA table of (K+1) x 9 floats in shared memory (cols
-// 0-2 diffuse, 3-5 specular, 6-8 emission, row K the background; 18.5 KB at
-// K = 512), added to with shared atomics. Each CTA writes its table to
-// out[blockIdx.x]; one torch.sum over the CTAs finishes the reduction, so no
-// global float atomics. The order of the float additions is the atomics'
-// and changes from run to run. The Pallas kernel's two table layouts
+// Accumulation: a per-CTA table of (K+1) x 9 cells in shared memory (cols
+// 0-2 diffuse, 3-5 specular, 6-8 emission, row K the background), each an
+// exact fixed-point sum (csrc/exact_sum.cuh: 44 bytes a cell, 4.8 KB at the
+// test scene's K = 11, 203 KB at K = 512, where one CTA fits an SM), added
+// to with shared integer atomics in any order and rounded to a float once.
+// Each CTA writes its table to out[blockIdx.x]; one torch.sum over the CTAs
+// finishes the reduction, so no global atomics, and the same inputs give
+// the same bits on every run. The Pallas kernel's two table layouts
 // (unrolled planes below 25 objects, a VMEM table above) are one here.
 //
 // What bounds it on this card: as K1, divergent per-item ALU work (two walks
@@ -43,6 +45,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC
 
+#include "exact_sum.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -50,7 +53,7 @@ namespace {
 using namespace walk;
 
 struct PathReplay : NoHooks {
-  float* tab;  // shared (K+1) x 9
+  exact_sum::Table tab;  // shared (K+1) x 9
   int K;
   V3<float> g;        // this lane's cotangent / divisor
   bool grading;       // walk 2
@@ -61,10 +64,10 @@ struct PathReplay : NoHooks {
 
   // cells (row, col .. col + 2) += v
   __device__ void add3(int row, int col, const V3<float>& v) {
-    float* cell = tab + row * 9 + col;
-    atomicAdd(cell, v.x);
-    atomicAdd(cell + 1, v.y);
-    atomicAdd(cell + 2, v.z);
+    const int cell = row * 9 + col;
+    tab.add(cell, v.x);
+    tab.add(cell + 1, v.y);
+    tab.add(cell + 2, v.z);
   }
 
   // the colour's share of everything still to come: g * R_rem / colour
@@ -145,9 +148,10 @@ template <bool kOneItem>
 __global__ void __launch_bounds__(kItems) material_grads(const float* __restrict__ scn,
                                                          const float* __restrict__ g, float* __restrict__ out,
                                                          const MegaParams p) {
-  extern __shared__ float tab[];
+  extern __shared__ unsigned long long smem[];
   const int rows = p.n_planes + p.n_spheres + 1;
-  for (int i = threadIdx.x; i < rows * 9; i += blockDim.x) tab[i] = 0.0f;
+  const exact_sum::Table tab = exact_sum::Table::at(smem, rows * 9);
+  tab.zero(rows * 9);
   __syncthreads();
 
   const Layout s = layout(scn, p);
@@ -205,7 +209,7 @@ __global__ void __launch_bounds__(kItems) material_grads(const float* __restrict
   }
   __syncthreads();
   float* mine = out + static_cast<size_t>(blockIdx.x) * rows * 9;
-  for (int i = threadIdx.x; i < rows * 9; i += blockDim.x) mine[i] = tab[i];
+  for (int i = threadIdx.x; i < rows * 9; i += blockDim.x) mine[i] = tab.value(i);
 }
 
 }  // namespace
@@ -219,12 +223,13 @@ extern "C" int kajo_material_grads(const float* scene, const float* g, float* ou
                                    void* stream) {
   const MegaParams p = *params;
   if (p.n_lanes > 0 && p.eff > 0) {
-    const size_t shared = static_cast<size_t>(p.n_planes + p.n_spheres + 1) * 9 * sizeof(float);
+    const size_t shared = exact_sum::bytes((p.n_planes + p.n_spheres + 1) * 9);
     const int ctas = n_ctas(p);
-    if (static_cast<long long>(ctas) * kItems >= n_items(p))
-      material_grads<true><<<ctas, kItems, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
-    else
-      material_grads<false><<<ctas, kItems, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
+    const auto kernel = static_cast<long long>(ctas) * kItems >= n_items(p) ? material_grads<true>
+                                                                            : material_grads<false>;
+    const int err = exact_sum::allow_shared(kernel, shared);
+    if (err) return err;
+    kernel<<<ctas, kItems, shared, static_cast<cudaStream_t>(stream)>>>(scene, g, out, p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,26 +30,19 @@
 // 16% faster than a thread a lane), else one block of eff samples, one
 // thread a lane (caustics 512x384: 196,608 lanes); a thread per four
 // samples at 256x192 ran slower than either (H100, PERF.md). The plan
-// (jvp_plan, mirrored by ops/megakernel.py:jvp_plan) decides. K2's image
-// must equal K1's bit for bit, and K1 adds every radiance term of a lane,
-// sample after sample, to one running sum; a sum of per-sample sums rounds
-// otherwise. So a lane's first block keeps the running sum itself, every
-// later block logs the values of its terms, in the order the walk hands
-// them over (miss, NEE sum, emission; zeros too), to shared memory, and
-// after a barrier one thread per (lane, channel) continues the first
-// block's sum over the later blocks' logs in (sample, term) order. A
-// sample hands over at most 2 max_depth + 1 terms: at most max_depth + 1
-// vertices (a path ends at depth max_depth), each with an NEE sum and an
-// emission term, except that the last vertex neither scatters nor, if it
-// missed, emits. The tangent is held to a relative gap, not to bits, so
-// each block sums its own tangent terms and the lane adds the per-block
-// sums. A CTA holds lanes_per_cta lanes and `wave` blocks of each at a
-// time; a lane with more blocks than a CTA holds goes through in waves,
-// its running sums carried over in shared memory.
+// (jvp_plan: sample_plan.cuh with K2's threshold and shared-byte rule,
+// mirrored by ops/megakernel.py:jvp_plan) decides. K2's image must equal
+// K1's bit for bit, so a lane's first block keeps K1's running sum and the
+// later ones log their terms' values (miss, NEE sum, emission; zeros too)
+// to be added in (sample, term) order, as sample_plan.cuh describes and K1
+// does below its own threshold. The tangent is held to a relative gap, not
+// to bits, so each block sums its own tangent terms and the lane adds the
+// per-block sums.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC
 
+#include "sample_plan.cuh"
 #include "walk.cuh"
 
 namespace {
@@ -70,55 +63,16 @@ struct TangentReader {
   __device__ Dual cam(int f) const { return {__ldg(s.cam + f), __ldg(t.cam + f)}; }
 };
 
-constexpr int kMaxThreads = 128;           // a CTA
-constexpr int kResidentThreads = 67584;    // 132 SMs x 4 CTAs x 128 threads
-constexpr size_t kSharedLimit = 232448;    // bytes of shared memory a CTA may use (227 KB)
+// K2's shared-byte rule (sample_plan.cuh): a thread keeps its value and
+// tangent sums and its term count (7 floats), a lane its running value and
+// tangent sums (6); a thread a sample below 132 SMs x 4 CTAs x 128 threads
+constexpr int kResidentThreads = 67584;
+constexpr int kThreadFloats = 7, kLaneFloats = 6;
+using sample_plan::kMaxThreads;
+using Plan = sample_plan::Plan;
 
-// How a launch covers the lanes' samples; ops/megakernel.py:jvp_plan
-// computes the same.
-struct JvpPlan {
-  int per_block;      // samples a thread walks in series: 1, or eff
-  int blocks;         // eff / per_block blocks a lane
-  int log_terms;      // terms a block can log: 2 max_depth + 1; 0 for one block a lane
-  int threads;        // = lanes_per_cta * wave
-  int lanes_per_cta;
-  int wave;           // blocks of a lane walked at once
-  int waves;          // ceil(blocks / wave)
-  int shared;         // bytes
-};
-
-// One thread a sample where the lanes alone would leave some of the card's
-// resident threads idle, else one thread a lane (no log); as many threads
-// a CTA as fit in 128 and its shared memory (whole warps where at least one
-// fits), all of a lane's blocks in one wave where they fit, else in equal
-// waves of one lane. threads = 0: not even one thread's log fits.
-__host__ inline JvpPlan jvp_plan(int n_lanes, int eff, int max_depth) {
-  JvpPlan q;
-  q.threads = 0;
-  if (n_lanes < 1 || eff < 1) return q;
-  q.per_block = n_lanes < kResidentThreads ? 1 : eff;
-  q.blocks = eff / q.per_block;
-  q.log_terms = q.blocks > 1 ? 2 * (max_depth > 0 ? max_depth : 0) + 1 : 0;
-  // per thread: its log (3 channels x log_terms), its value and tangent
-  // sums and its term count (7); per lane: its running sums (6)
-  size_t cap = kSharedLimit / ((3 * static_cast<size_t>(q.log_terms) + 7 + 6) * sizeof(float));
-  if (cap > kMaxThreads) cap = kMaxThreads;
-  if (cap >= 32) cap = cap / 32 * 32;
-  if (cap < 1) return q;
-  const int c = static_cast<int>(cap);
-  if (q.blocks <= c) {
-    q.wave = q.blocks;
-    q.lanes_per_cta = c / q.blocks;
-    q.waves = 1;
-  } else {
-    q.waves = (q.blocks + c - 1) / c;
-    q.wave = (q.blocks + q.waves - 1) / q.waves;
-    q.lanes_per_cta = 1;
-  }
-  q.threads = q.lanes_per_cta * q.wave;
-  q.shared = static_cast<int>(q.threads * (3 * static_cast<size_t>(q.log_terms) + 7) * sizeof(float) +
-                              6 * static_cast<size_t>(q.lanes_per_cta) * sizeof(float));
-  return q;
+__host__ inline Plan jvp_plan(int n_lanes, int eff, int max_depth) {
+  return sample_plan::plan(n_lanes, eff, max_depth, kResidentThreads, kThreadFloats, kLaneFloats);
 }
 
 // a block's radiance terms: the lane's first block sums their values in
@@ -151,7 +105,7 @@ struct TermLog : NoHooks {
 __global__ void __launch_bounds__(kMaxThreads, 4) megakernel_jvp(const float* __restrict__ scn,
                                                               const float* __restrict__ scn_dot,
                                                               float* __restrict__ out, const MegaParams p,
-                                                              const JvpPlan q) {
+                                                              const Plan q) {
   extern __shared__ float sm[];
   const int nt = q.threads, T = q.log_terms;
   float* logs = sm;                                          // [3][T][nt]
@@ -232,7 +186,7 @@ extern "C" int kajo_megakernel_jvp(const float* scene, const float* scene_dot, f
                                    void* stream) {
   const MegaParams p = *params;
   if (p.n_lanes > 0 && p.eff > 0) {
-    const JvpPlan q = jvp_plan(p.n_lanes, p.eff, p.max_depth);
+    const Plan q = jvp_plan(p.n_lanes, p.eff, p.max_depth);
     if (q.threads < 1) return static_cast<int>(cudaErrorInvalidValue);
     if (q.shared > 48 * 1024) {
       const cudaError_t err =
@@ -243,4 +197,9 @@ extern "C" int kajo_megakernel_jvp(const float* scene, const float* scene_dot, f
     megakernel_jvp<<<blocks, q.threads, q.shared, static_cast<cudaStream_t>(stream)>>>(scene, scene_dot, out, p, q);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's plan constants (sample_plan::constants) into out[5].
+extern "C" void kajo_megakernel_jvp_plan_constants(int* out) {
+  sample_plan::constants(out, kResidentThreads, kThreadFloats, kLaneFloats);
 }

@@ -35,17 +35,12 @@
 // scans together, since a group runs a block while any of its rays needs
 // it.
 //
-// K6: one thread per ray, a CTA of 128 rays, a loop over the blocks in
-// packed order. Each thread slab-tests the block's AABB
-// against its live t_best (t_enter times the block's min det, so a
-// det-scaled hit distance is never culled; BIG, not inf, so 0 * (1/d) stays
-// 0 on a face); __syncthreads_or decides whether the CTA stages the
-// block's records in shared memory (2 KB rigid, 7 KB general) and scans
-// it; threads whose own test failed skip the scan. K6 leaves a block's scan
-// at its first occluder and the whole loop once every ray of the CTA is
-// occluded.
+// The first design of both was one thread per ray, a CTA of 128
+// rays deciding each block with __syncthreads_or and staging its records
+// in shared memory: a block ran while any of 128 rays needed it, and every
+// block cost two CTA barriers, even one the CTA skipped.
 //
-// K5 cuts that union, leaving every ray's answer as it was:
+// K5 and K6 cut that union, leaving every ray's answer as it was:
 //  * the group is a warp, not a CTA: __any_sync over 32 lanes decides a
 //    block, and the records come through L1 with __ldg, the lanes that
 //    read one row getting it as a broadcast, so no CTA barrier and no
@@ -100,52 +95,11 @@ namespace {
 
 using namespace kajo_stream;
 
-constexpr int kRays = 128;        // K6: rays per CTA, one per thread
 constexpr int kLanesPerRay = 8;   // K5: lanes that share one ray's scan of a block
-constexpr int kThreads = 128;     // K5: threads per CTA (16 rays)
-constexpr int kSuper = 8;         // K5: blocks per superblock (ops/stream_trace.py:V2_SUPER / 128)
+constexpr int kOccLanes = 8;      // K6: lanes that share one ray's any-hit test of a block
+constexpr int kThreads = 128;     // K5, K6: threads per CTA
+constexpr int kSuper = 8;         // K5, K6: blocks per superblock (ops/stream_trace.py:V2_SUPER / 128)
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-template <bool RIGID>
-__global__ void __launch_bounds__(kRays) occluded_kernel(const float* __restrict__ ray_o,
-                                                          const float* __restrict__ ray_d,
-                                                          const float* __restrict__ bound,
-                                                          const float* __restrict__ packed,
-                                                          const float* __restrict__ boxes,
-                                                          const int32_t* __restrict__ excl_in,
-                                                          float* __restrict__ t_out, int n, int n_blocks) {
-  constexpr int F = RIGID ? kFRigid : kFGeneral;
-  __shared__ float sph[kSpheres * F];
-
-  const int ray = blockIdx.x * kRays + threadIdx.x;
-  const bool live = ray < n;
-  const Ray r = load_ray(ray_o, ray_d, ray, live);
-  float t_best = live ? bound[ray] : 0.0f;  // a dead thread is "occluded" and never needs a block
-  const int32_t excl = live ? excl_in[ray] : -1;
-  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
-
-  for (int blk = 0; blk < n_blocks; ++blk) {
-    if (__syncthreads_and(t_best == 0.0f)) break;  // every ray occluded
-    const bool may = live && box_may_hit(r, ix, iy, iz, boxes + 8 * blk, t_best);
-    if (!__syncthreads_or(may)) continue;
-
-    stage(sph, packed + static_cast<size_t>(blk) * kSpheres * F, kSpheres * F);
-    __syncthreads();
-    if (may) {
-      const int32_t base = blk * kSpheres;
-      for (int i = 0; i < kSpheres; ++i) {
-        float t;
-        if (quadratic<RIGID>(&sph[F * i], r, t) && t < t_best && base + i != excl) {
-          t_best = 0.0f;  // sticky: t >= 0 never beats 0
-          break;
-        }
-      }
-    }
-    __syncthreads();  // the next staged block overwrites sph
-  }
-
-  if (live) t_out[ray] = t_best;
-}
 
 // one axis of the superblock's slab test: slab_axis's operations, but an
 // axis whose t0 or t1 is NaN constrains nothing (see the note at the top)
@@ -261,6 +215,72 @@ __global__ void __launch_bounds__(kThreads) nearest_kernel(const float* __restri
   }
 }
 
+
+// K6: nearest_kernel's warp, lanes and superblocks, for an any-hit answer.
+// A ray's output is its cut or 0, and t_best only ever goes from the cut to
+// 0, for good; so the ray is occluded exactly when some block whose box it
+// enters below the cut holds a valid hit below the cut on a row other than
+// excl (the superblock test never rejects such a block, by the argument
+// above), and neither the order of the blocks, nor which lane finds the
+// hit, nor a stop at the first one changes a bit. Lane k of a ray tests rows
+// k, k + kOccLanes, ... of a block and stops at its first occluder; one
+// ballot ORs the ray's lanes; the warp leaves the loop once all its rays
+// are occluded (a ray with a zero cut, or a dead lane, counts from the
+// start).
+template <bool RIGID>
+__global__ void __launch_bounds__(kThreads) occluded_kernel(const float* __restrict__ ray_o,
+                                                             const float* __restrict__ ray_d,
+                                                             const float* __restrict__ bound,
+                                                             const float* __restrict__ packed,
+                                                             const float* __restrict__ boxes,
+                                                             const float* __restrict__ sboxes,
+                                                             const int32_t* __restrict__ excl_in,
+                                                             float* __restrict__ t_out, int n, int n_blocks) {
+  constexpr int F = RIGID ? kFRigid : kFGeneral;
+  constexpr unsigned kRayMask = kOccLanes == 32 ? kFull : (1u << kOccLanes) - 1u;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int ray = tid / kOccLanes;
+  const int sub = tid % kOccLanes;  // this lane's rows of a block: sub, sub + kOccLanes, ...
+  const int first = (threadIdx.x & 31) & ~(kOccLanes - 1);  // the ray's first lane in the warp
+  const bool live = ray < n;
+  const Ray r = load_ray(ray_o, ray_d, ray, live);
+  float t_best = live ? bound[ray] : 0.0f;  // a dead lane is "occluded" and never needs a block
+  const int32_t excl = live ? excl_in[ray] : -1;
+  const float ix = inv_dir(r.dx), iy = inv_dir(r.dy), iz = inv_dir(r.dz);
+
+  for (int sb = 0; sb * kSuper < n_blocks; ++sb) {
+    if (__all_sync(kFull, t_best == 0.0f)) break;  // every ray of the warp occluded
+    const bool may_s = live && super_may_hit(r, ix, iy, iz, sboxes + 8 * sb, t_best);
+    if (!__any_sync(kFull, may_s)) continue;
+    const int end = min(n_blocks, (sb + 1) * kSuper);
+    for (int blk = sb * kSuper; blk < end; ++blk) {
+      const bool may = live && box_may_hit(r, ix, iy, iz, boxes + 8 * blk, t_best);
+      if (!__any_sync(kFull, may)) continue;
+      bool hit = false;
+      if (may) {
+        const int32_t base = blk * kSpheres;
+#pragma unroll 1
+        for (int i = sub; i < kSpheres; i += kOccLanes) {
+          float rec[F];
+          load_record<RIGID>(packed, base + i, rec);
+          float t;
+          if (quadratic<RIGID>(rec, r, t) && t < t_best && base + i != excl) {
+            hit = true;  // this lane's first occluder
+            break;
+          }
+        }
+      }
+      const unsigned hits = __ballot_sync(kFull, hit);
+      if (hits) {  // the same for every lane of the warp
+        if ((hits >> first) & kRayMask) t_best = 0.0f;  // sticky: t >= 0 never beats 0
+        if (__all_sync(kFull, t_best == 0.0f)) break;
+      }
+    }
+  }
+
+  if (live && sub == 0) t_out[ray] = t_best;
+}
+
 }  // namespace
 
 // K5: nearest hit -> t_out [n] (the bound where nothing beat it), idx_out
@@ -282,16 +302,18 @@ extern "C" int kajo_stream_nearest(const float* o, const float* d, const float* 
 }
 
 // K6: any-hit occlusion below the bound, packed row excl [n] skipped ->
-// t_out [n] the final bound (0 = occluded).
+// t_out [n] the final bound (0 = occluded); sboxes as for K5.
 extern "C" int kajo_stream_occluded(const float* o, const float* d, const float* t_cut, const float* packed,
-                                    const float* boxes, float* t_out, const int32_t* excl, int n, int n_blocks,
-                                    int rigid, cudaStream_t stream) {
+                                    const float* boxes, const float* sboxes, float* t_out, const int32_t* excl, int n,
+                                    int n_blocks, int rigid, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + kRays - 1) / kRays);
+  const dim3 grid(static_cast<unsigned>((static_cast<long long>(n) * kOccLanes + kThreads - 1) / kThreads));
   if (rigid) {
-    occluded_kernel<true><<<grid, kRays, 0, stream>>>(o, d, t_cut, packed, boxes, excl, t_out, n, n_blocks);
+    occluded_kernel<true><<<grid, kThreads, 0, stream>>>(o, d, t_cut, packed, boxes, sboxes, excl, t_out, n,
+                                                         n_blocks);
   } else {
-    occluded_kernel<false><<<grid, kRays, 0, stream>>>(o, d, t_cut, packed, boxes, excl, t_out, n, n_blocks);
+    occluded_kernel<false><<<grid, kThreads, 0, stream>>>(o, d, t_cut, packed, boxes, sboxes, excl, t_out, n,
+                                                          n_blocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 // Device helpers of the streaming sphere trace, shared by K5/K6
 // (stream_trace.cu) and the nearest-hit designs K7 (stream_trace_v1.cu), K8
 // (stream_trace_v2.cu) and K9 (stream_trace_v3.cu): the ray record, the
-// rigid and general sphere quadratics, the slab test of a block's box, the
-// staging of a block's records in shared memory and the strict nearest-hit
-// scan of a staged block.
+// rigid and general sphere quadratics, the slab test of a block's box, and,
+// for K7-K9, the staging of a block's records in shared memory and the
+// strict nearest-hit scan of a staged block.
 //
 // One copy on purpose, as kajo_tpu/ops/pallas/stream_trace.py keeps one
 // _quadratic_rigid (:74), one _quadratic_general (:91) and one _slab_test

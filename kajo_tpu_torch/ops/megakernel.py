@@ -16,7 +16,10 @@ The wrappers dispatch on the device of the scene's tensors: a CPU scene runs
 :func:`render_pass_megakernel_plain`, the same lane loop vectorised over
 lanes with masks (as the Pallas body is); a CUDA scene launches the kernel,
 or raises. Nothing falls back from CUDA to the plain version.
-``kernel_launches`` counts the kernel's launches.
+``kernel_launches`` counts the kernel's launches. The kernel takes a thread
+a lane where the lanes fill the card and a thread a (lane, sample) below
+one wave of them (:func:`k1_plan`, the same plan as the forward-mode
+kernel's), with the same sums, bit for bit, either way.
 
 The plain version divides by 0-d tensors on the scene's device rather than
 by Python numbers: PyTorch's CUDA division by a host scalar multiplies by
@@ -360,9 +363,25 @@ def scene_zero_tangent(scene: Scene) -> Scene:
     return map_tensors(torch.zeros_like, scene)
 
 
-JVP_MAX_THREADS = 128  # a CTA of K2
+PLAN_MAX_THREADS = 128  # a CTA of K1's or K2's sample plan (csrc/sample_plan.cuh)
+PLAN_SHARED_LIMIT = 232448  # bytes of shared memory a CTA may use on the H100 (227 KB)
 JVP_RESIDENT_THREADS = 67584  # 132 SMs x 4 CTAs x 128 threads: below, K2 takes a thread a sample
-JVP_SHARED_LIMIT = 232448  # bytes of shared memory a CTA may use on the H100 (227 KB)
+K1_RESIDENT_THREADS = 84480  # 132 SMs x 5 CTAs x 128 threads (K1's lane kernel): below, a thread a sample
+# the shared-byte rules (floats a thread keeps besides its log, floats a lane keeps)
+JVP_FLOATS = (7, 6)  # K2: value and tangent sums and a term count; running value and tangent sums
+K1_FLOATS = (4, 3)  # K1: value sum and a term count; running sum
+
+
+def built_plan_constants(source: str) -> tuple:
+    """(PLAN_MAX_THREADS, PLAN_SHARED_LIMIT, threshold, *floats) as the
+    library of ``csrc/<source>`` (``megakernel.cu``: K1, ``megakernel_jvp.cu``:
+    K2) compiled them, for a check of the constants above; builds it, so
+    needs nvcc."""
+    from ._nvcc import load_library
+
+    out = (ctypes.c_int * 5)()
+    getattr(load_library(source), f"kajo_{source.removesuffix('.cu')}_plan_constants")(out)
+    return tuple(out)
 
 
 def sample_terms(max_depth: int) -> int:
@@ -373,14 +392,15 @@ def sample_terms(max_depth: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class JvpPlan:
-    """How K2 covers the lanes' samples; ``jvp_plan`` in
-    ``csrc/megakernel_jvp.cu`` computes the same. A lane's eff samples split
+class SamplePlan:
+    """How K1 or K2 covers the lanes' samples; ``plan`` in
+    ``csrc/sample_plan.cuh`` computes the same. A lane's eff samples split
     into ``blocks`` blocks of ``per_block`` consecutive samples (1 or eff),
     one thread each; a CTA of ``threads`` = ``lanes_per_cta`` x ``wave``
     threads walks ``wave`` blocks of each of its lanes at once, ``waves``
     times. The lane's first block sums its terms itself; every later one
-    logs up to ``log_terms`` terms."""
+    logs up to ``log_terms`` terms. A thread keeps ``thread_floats`` floats
+    besides its log, a lane ``lane_floats``."""
 
     eff: int  # samples a lane
     per_block: int
@@ -389,6 +409,8 @@ class JvpPlan:
     lanes_per_cta: int
     wave: int
     waves: int
+    thread_floats: int
+    lane_floats: int
 
     @property
     def threads(self) -> int:
@@ -396,9 +418,9 @@ class JvpPlan:
 
     @property
     def shared(self) -> int:
-        """Bytes: per thread its log, value and tangent sums and count; per
-        lane its running value and tangent sums."""
-        return 4 * (self.threads * (3 * self.log_terms + 7) + 6 * self.lanes_per_cta)
+        """Bytes: per thread its log and its other floats, per lane its
+        running sums."""
+        return 4 * (self.threads * (3 * self.log_terms + self.thread_floats) + self.lane_floats * self.lanes_per_cta)
 
     def n_ctas(self, n_lanes: int) -> int:
         return -(-n_lanes // self.lanes_per_cta)
@@ -411,25 +433,44 @@ class JvpPlan:
         return cta * self.lanes_per_cta + thread // self.wave, wave * self.wave + thread % self.wave
 
 
-def jvp_plan(n_lanes: int, eff: int, max_depth: int) -> JvpPlan:
-    """K2's plan: one thread a sample where the lanes alone would leave some
-    of the card's resident threads idle (JVP_RESIDENT_THREADS), else one
-    thread a lane, with no log; as many threads a CTA as fit in 128 and its
-    shared memory (whole warps where at least one fits), all of a lane's
-    blocks in one wave where they fit, else in equal waves of one lane.
-    Raises ValueError where not even one thread's log fits."""
-    per_block = 1 if n_lanes < JVP_RESIDENT_THREADS else eff
+def sample_plan(n_lanes: int, eff: int, max_depth: int, resident: int, floats: tuple) -> SamplePlan | None:
+    """One thread a sample below ``resident`` lanes, else one thread a lane,
+    with no log; as many threads a CTA as fit in 128 and its shared memory
+    (whole warps where at least one fits), all of a lane's blocks in one
+    wave where they fit, else in equal waves of one lane. ``floats``: the
+    kernel's shared-byte rule. None where not even one thread's log fits."""
+    per_block = 1 if n_lanes < resident else eff
     blocks = eff // per_block
     log_terms = sample_terms(max_depth) if blocks > 1 else 0
-    cap = min(JVP_SHARED_LIMIT // (4 * (3 * log_terms + 13)), JVP_MAX_THREADS)
+    thread_floats, lane_floats = floats
+    cap = min(PLAN_SHARED_LIMIT // (4 * (3 * log_terms + thread_floats + lane_floats)), PLAN_MAX_THREADS)
     if cap >= 32:
         cap = cap // 32 * 32
     if cap < 1:
-        raise ValueError(f"the forward-mode kernel's term log takes max_depth <= 9682, got {max_depth}")
+        return None
     if blocks <= cap:
-        return JvpPlan(eff, per_block, blocks, log_terms, cap // blocks, blocks, 1)
+        return SamplePlan(eff, per_block, blocks, log_terms, cap // blocks, blocks, 1, *floats)
     waves = -(-blocks // cap)
-    return JvpPlan(eff, per_block, blocks, log_terms, 1, -(-blocks // waves), waves)
+    return SamplePlan(eff, per_block, blocks, log_terms, 1, -(-blocks // waves), waves, *floats)
+
+
+def jvp_plan(n_lanes: int, eff: int, max_depth: int) -> SamplePlan:
+    """K2's plan (``jvp_plan`` in ``csrc/megakernel_jvp.cu``): a thread a
+    sample below JVP_RESIDENT_THREADS lanes. Raises ValueError where not
+    even one thread's log fits."""
+    plan = sample_plan(n_lanes, eff, max_depth, JVP_RESIDENT_THREADS, JVP_FLOATS)
+    if plan is None:
+        raise ValueError(f"the forward-mode kernel's term log takes max_depth <= 9682, got {max_depth}")
+    return plan
+
+
+def k1_plan(n_lanes: int, eff: int, max_depth: int) -> SamplePlan | None:
+    """K1's plan (``k1_plan`` in ``csrc/megakernel.cu``): a thread a sample
+    below K1_RESIDENT_THREADS lanes; None where K1 takes a thread a lane
+    (the lanes fill the card, a lane has one sample, or not even one
+    thread's log fits, from max_depth 9684 on)."""
+    plan = sample_plan(n_lanes, eff, max_depth, K1_RESIDENT_THREADS, K1_FLOATS)
+    return plan if plan is not None and plan.blocks > 1 else None
 
 
 def launch_kernel_jvp(ps: MegaPass, packed_dot: torch.Tensor, seed: int):
@@ -703,7 +744,10 @@ def trace_lanes_plain(
     their samples keep their sums while the others run on. A ``stats`` dict
     receives the counts of path rays (one per live lane per iteration) and
     shadow rays (one per light, or one, per scattering lane) the pass
-    traced; counting reads them back from the device every iteration.
+    traced, of the path vertices that hit (``hits``) and of those that
+    continue by each BSDF (``lambert``, ``phong``, ``mirror``,
+    ``transmit``); counting reads them back from the device every
+    iteration.
 
     The walk is differentiable in ``ps.packed`` (reverse and forward mode)
     with the JAX kernels' conventions: the three coin probabilities and the
@@ -940,6 +984,9 @@ def trace_lanes_plain(
             stats["rays"] = stats.get("rays", 0) + int(active.sum())
             shadow = int(scatter.sum()) * ((1 if ps.one_light else L) if ps.nee_on else 0)
             stats["shadow_rays"] = stats.get("shadow_rays", 0) + shadow
+            for key, m in (("hits", on_path), ("lambert", m_lam), ("phong", m_ph), ("mirror", m_mir),
+                           ("transmit", m_trans)):
+                stats[key] = stats.get(key, 0) + int(m.sum())
 
         view = d
         tangent, binormal = tangent_frame(normal)

@@ -18,11 +18,12 @@ and their plain versions scan the blocks in this packed order, skip a block
 whose box a ray does not enter below its live bound, and keep a strict
 ``t < t_best``, so the first packed index wins a tie; they report packed
 indices, which ``nearest_sphere`` maps back to scene numbering through the
-padded ``perm``. K5 gives each ray eight lanes of a warp, lets a warp
-decide a block for its four rays, and tests the superblocks of
-``build_stream_scene`` (8 blocks each) before their blocks; none of that
-changes a ray's answer (the note at the top of ``csrc/stream_trace.cu``
-says why). ``NEAREST_DESIGN`` (or ``nearest_design(...)``, or ``design=``)
+padded ``perm``. K5 and K6 give each ray eight lanes of a warp, let a
+warp decide a block for its four rays, and test the superblocks of
+``build_stream_scene`` (8 blocks each) before their blocks; K6 stops a
+ray at its first occluder and a warp once all its rays are occluded. None
+of that changes a ray's answer (the notes in ``csrc/stream_trace.cu`` say
+why). ``NEAREST_DESIGN`` (or ``nearest_design(...)``, or ``design=``)
 routes the nearest hit through K7, K8 or K9 instead, which
 decide per tile of rays which blocks the whole tile scans (see the section
 of the designs below); shadow rays of rigid scenes stay on K6 under every
@@ -329,12 +330,13 @@ def nearest_sphere_plain(rigid: bool, o, d, bound, packed, boxes, sboxes=None):
     return t_best, idx
 
 
-def occluded_sphere_plain(rigid: bool, o, d, t_cut, excl, packed, boxes):
+def occluded_sphere_plain(rigid: bool, o, d, t_cut, excl, packed, boxes, sboxes=None):
     """K6's function in plain PyTorch -> the final bound [N] f32: 0 where a
     valid sphere other than packed row ``excl`` hits strictly below the
     bound in a block the ray's box test (against its live bound) admits,
     else ``t_cut`` (so a ray with ``t_cut == 0`` is 0). The scan and its box
-    test are :func:`nearest_sphere_plain`'s."""
+    test are :func:`nearest_sphere_plain`'s. ``sboxes`` (K6's superblocks)
+    is taken as :func:`launch_occluded` takes it and changes no answer."""
     t_best = t_cut.clone()
 
     def visit(rays, blk, t, valid, entered, t_enter_det):
@@ -673,14 +675,17 @@ def launch_nearest(rigid: bool, o, d, bound, packed, boxes, sboxes=None):
     return t_out, idx_out
 
 
-def launch_occluded(rigid: bool, o, d, t_cut, excl, packed, boxes):
+def launch_occluded(rigid: bool, o, d, t_cut, excl, packed, boxes, sboxes=None):
     """Launch K6 on the current stream -> final bound [N], the function of
-    :func:`occluded_sphere_plain`."""
+    :func:`occluded_sphere_plain`. ``sboxes``: the scene's superblocks
+    (``PreparedScene.stream_sboxes``), built here from ``boxes`` when None."""
     global occluded_launches
     n, n_blocks = _check_trace(rigid, o, d, t_cut, packed, boxes)
     _check("excl", excl, torch.int32, (n,))
+    sboxes = v2_superblocks(boxes) if sboxes is None else sboxes
+    _check("sboxes", sboxes, torch.float32, (-(-n_blocks // (V2_SUPER // BLOCK)), 8))
     t_out = torch.empty((n,), dtype=torch.float32, device=o.device)
-    _run("stream_trace.cu", "kajo_stream_occluded", o, o, d, t_cut, packed, boxes, t_out, excl, n, n_blocks,
+    _run("stream_trace.cu", "kajo_stream_occluded", o, o, d, t_cut, packed, boxes, sboxes, t_out, excl, n, n_blocks,
          int(rigid))
     occluded_launches += 1
     return t_out
@@ -827,5 +832,5 @@ def occluded_sphere(prep, o, d, t_cut, excl=None):
     if _device_kind(o) == "cpu":
         out = occluded_sphere_plain(prep.rigid, o, d, tc, excl, prep.stream_packed, prep.stream_boxes)
     else:
-        out = launch_occluded(prep.rigid, o, d, tc, excl, prep.stream_packed, prep.stream_boxes)
+        out = launch_occluded(prep.rigid, o, d, tc, excl, prep.stream_packed, prep.stream_boxes, prep.stream_sboxes)
     return out == 0.0

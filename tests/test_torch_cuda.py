@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-megakernel (K1), the streaming trace (K5 nearest hit, K6 occlusion, and the
+megakernel (K1, in both of its regimes), the streaming trace (K5 nearest hit, K6 occlusion, and the
 nearest-hit designs K7, K8, K9) and the gradient kernels (K2 forward mode, K3 material and K4 geometry gradients).
 
 Needs a CUDA device, nvcc and no jax, so on a GPU machine run it without the
@@ -142,6 +142,92 @@ def test_nearest_kernel_in_any_ray_order(device, jitter):
             assert int((i_p >= 0).sum()) > 1000, label
             assert torch.equal(i_k, i_p), label
             assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)), label
+
+
+@pytest.mark.parametrize("case", ["all-occluded", "none-occluded", "only-the-excluded-row"])
+def test_occlusion_kernel_on_whole_warps(device, case):
+    """K6 on a rigid field where every ray of every warp is occluded, where
+    none is, and where only each ray's excluded row lies below its cut:
+    equal to its plain version on every ray, bit for bit, with the scene's
+    superblocks and with those its wrapper builds."""
+    prep = geometry.prepare_scene(random_spheres_scene(20000, seed=3, extent=30.0, device=device))
+    o, d, bound = _stream_rays(prep)
+    t, idx = stream_trace.launch_nearest(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    hit = torch.nonzero(idx >= 0).squeeze(1)
+    o, d, t, idx = o[hit].contiguous(), d[hit].contiguous(), t[hit], idx[hit]
+    none = torch.full_like(idx, -1)
+    cut, excl, want = {
+        "all-occluded": (t * 1.5, none, 0),
+        "none-occluded": (t * 0.5, none, o.shape[0]),
+        # the nearest sphere is the only one below a cut just past it, and it is excluded
+        "only-the-excluded-row": (torch.nextafter(t, torch.full_like(t, float("inf"))), idx, None),
+    }[case]
+    for sboxes in (prep.stream_sboxes, None):
+        args = (prep.rigid, o, d, cut.contiguous(), excl.to(torch.int32).contiguous(), prep.stream_packed,
+                prep.stream_boxes, sboxes)
+        occ_k = stream_trace.launch_occluded(*args)
+        occ_p = stream_trace.occluded_sphere_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(occ_k.view(torch.int32), occ_p.view(torch.int32))
+        unoccluded = int((occ_p != 0).sum())
+        if want is not None:
+            assert unoccluded == want
+        else:
+            assert unoccluded > 0.95 * o.shape[0]
+    if case == "only-the-excluded-row":  # the same cuts without the exclusion: (nearly) all occluded
+        args = (prep.rigid, o, d, cut.contiguous(), none.to(torch.int32), prep.stream_packed, prep.stream_boxes)
+        assert int((stream_trace.launch_occluded(*args) != 0).sum()) < 0.01 * o.shape[0]
+
+
+@pytest.mark.parametrize(
+    "name,w,h,spp,config",
+    [
+        ("caustics.json", 16, 12, 144, RenderConfig(max_depth=3)),  # a thread a sample, two waves of 72
+        ("caustics.json", 8, 6, 81, RenderConfig(max_depth=100)),  # a 64-thread log, two waves of 41
+        ("scaled.json", 32, 24, 16, RenderConfig(max_depth=4)),  # the general record
+        ("two-light", 32, 24, 16, RenderConfig(max_depth=4, one_light_nee=True)),
+        ("caustics.json", 32, 24, 16, RenderConfig(max_depth=20, full_mis=True, regen_threshold=0.01)),
+        ("caustics.json", 320, 272, 4, RenderConfig()),  # 87,040 lanes: a thread a lane
+        ("scaled.json", 320, 272, 4, RenderConfig()),
+        ("random150", 32, 24, 4, RenderConfig()),  # 5,767 floats: the scene read from global memory
+        ("caustics.json", 2, 1, 16, RenderConfig(max_depth=9683)),  # a one-thread log fills the CTA: unstaged
+    ],
+    ids=["two-waves", "depth100-two-waves", "scaled", "one-light", "full-mis-regen-depth20", "lanes-caustics",
+         "lanes-scaled", "unstaged-general", "deepest-log-unstaged"],
+)
+def test_megakernel_regimes_equal_plain_bits(device, name, w, h, spp, config):
+    """K1 in both of its regimes (a thread a (lane, sample) below
+    K1_RESIDENT_THREADS lanes, a thread a lane above), with the scene in
+    shared memory and, above 16 KB, in global memory, equals its plain
+    version's sums bit for bit."""
+    if name == "two-light":
+        scene = build_two_light_scene(w / h, device)
+    elif name == "random150":
+        scene = random_spheres_scene(150, seed=6, extent=8.0, scale_jitter=0.5, aspect_ratio=w / h, device=device)
+    else:
+        scene = parser.load(os.path.join(DATA, name), w / h, device)
+    ps = megakernel.prepare_pass(scene, w, h, spp, config)
+    plan = megakernel.k1_plan(ps.n_lanes, ps.eff, config.max_depth)
+    assert (plan is None) == (ps.n_lanes >= megakernel.K1_RESIDENT_THREADS)
+    if spp > 64:
+        assert plan.waves == 2
+    got = megakernel.launch_kernel(ps, 21)
+    want = megakernel.trace_lanes_plain(ps, 21)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.abs().sum() > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("source", ["megakernel.cu", "megakernel_jvp.cu"])
+def test_plans_mirror_the_kernels_constants(device, source):
+    """The Python plans (megakernel.k1_plan, jvp_plan) use the thresholds
+    and shared-byte rules K1 and K2 were compiled with."""
+    resident, floats = {
+        "megakernel.cu": (megakernel.K1_RESIDENT_THREADS, megakernel.K1_FLOATS),
+        "megakernel_jvp.cu": (megakernel.JVP_RESIDENT_THREADS, megakernel.JVP_FLOATS),
+    }[source]
+    want = (megakernel.PLAN_MAX_THREADS, megakernel.PLAN_SHARED_LIMIT, resident, *floats)
+    assert megakernel.built_plan_constants(source) == want
 
 
 @pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
@@ -290,6 +376,64 @@ def test_grad_kernels_match_plain(device, name, config):
     _within(megakernel_geom.geometry_grads(scene, 31, g, W, H, SPP, config),
             megakernel_geom.geometry_grads_plain(scene, 31, g, W, H, SPP, config))
     assert (megakernel_grad.kernel_launches, megakernel_geom.kernel_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("name,config", GRAD_CASES, ids=GRAD_IDS)
+def test_grad_kernels_repeat_bit_for_bit(device, name, config):
+    """K3 and K4 sum their per-CTA tables exactly, whatever order their
+    atomics take (csrc/exact_sum.cuh): two calls on the same inputs give
+    the same bits."""
+    from kajo_tpu_torch.ops import megakernel_geom, megakernel_grad
+
+    scene = _grad_scene(name, device)
+    g = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(4)).to(device)
+    for fn in (megakernel_grad.material_grads, megakernel_geom.geometry_grads):
+        a, b = (fn(scene, 31, g, W, H, SPP, config) for _ in range(2))
+        torch.cuda.synchronize()
+        for k in a:
+            assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (fn.__name__, k)
+
+
+def test_grad_kernels_with_tables_beyond_48kb(device):
+    """503 objects: K3's table takes 200 KB of shared memory and K4's 88 KB,
+    past the 48 KB a kernel gets without opting in. Both stay within the bar
+    of the plain versions and repeat bit for bit."""
+    from kajo_tpu_torch.ops import megakernel_geom, megakernel_grad
+
+    scene = random_spheres_scene(500, seed=3, extent=10.0, n_lights=2, aspect_ratio=16 / 12, device=device)
+    assert scene.num_objects == 503
+    config = RenderConfig(max_depth=3)
+    g = torch.rand((12, 16, 3), generator=torch.Generator().manual_seed(4)).to(device)
+    for fn, plain in ((megakernel_grad.material_grads, megakernel_grad.material_grads_plain),
+                      (megakernel_geom.geometry_grads, megakernel_geom.geometry_grads_plain)):
+        a, b = (fn(scene, 31, g, 16, 12, 4, config) for _ in range(2))
+        torch.cuda.synchronize()
+        for k in a:
+            assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (fn.__name__, k)
+        _within(a, plain(scene, 31, g, 16, 12, 4, config))
+
+
+def test_inverse_loop_repeats_bit_for_bit(device):
+    """Engine mega, every sphere's transform and every albedo, K1 forward
+    and K3/K4 backward: two runs of a few Adam steps give the same losses
+    and the same parameters, bit for bit."""
+    from kajo_tpu_torch.diff.inverse import InverseRenderer, apply_params
+
+    scene = parser.load(os.path.join(DATA, "caustics.json"), W / H, device)
+    target = megakernel.render_pass_megakernel(scene, 1, W, H, 16)
+    st = scene.sphere_transform.clone()
+    st[0, 0, 3] += 0.2
+    st[0, 2, 3] -= 0.1
+    wrong = apply_params(scene, {"sphere_transform": st})
+    runs = []
+    for _ in range(2):
+        inv = InverseRenderer(wrong, target, W, H, spp=SPP, loss_clip=1.0, learning_rate=2e-2,
+                              param_spec=("sphere_transform", "diffuse"), engine="mega", seed=7)
+        losses = [inv.step() for _ in range(6)]
+        runs.append((losses, {k: v.detach().clone() for k, v in inv.params.items()}))
+    assert runs[0][0] == runs[1][0]
+    for k in runs[0][1]:
+        assert torch.equal(runs[0][1][k].view(torch.int32), runs[1][1][k].view(torch.int32)), k
 
 
 @pytest.mark.parametrize("name", ["caustics.json", "scaled.json"], ids=["caustics", "scaled"])

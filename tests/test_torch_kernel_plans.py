@@ -16,6 +16,13 @@ samples (a wave) at a time. Its log holds 2 max_depth + 1 terms per item
   with one wave and with several;
 * K2's plan and K3's grid (``megakernel_grad.n_ctas``, ``item_at``) reach
   every (lane, sample) item exactly once, for odd lane counts.
+
+K1 (``csrc/megakernel.cu``) takes the same plan below its own threshold,
+with its own shared-byte rule (value logs only): its plan reaches every
+item once, and the combine of its value logs, emulated, equals the plain
+walk's running sum bit for bit, in one wave and in several; where the
+lanes fill the card, a lane has one sample, or no log fits, it takes a
+thread a lane.
 """
 
 import os
@@ -128,7 +135,7 @@ def test_combine_in_waves_is_the_running_sum(name, w, h, spp, config, per_block)
 def test_jvp_plan_reaches_every_sample_once(eff, max_depth):
     for n_lanes in (1, 77, 1001, 67_584):
         plan = megakernel.jvp_plan(n_lanes, eff, max_depth)
-        assert plan.threads <= megakernel.JVP_MAX_THREADS and plan.shared <= megakernel.JVP_SHARED_LIMIT
+        assert plan.threads <= megakernel.PLAN_MAX_THREADS and plan.shared <= megakernel.PLAN_SHARED_LIMIT
         assert plan.wave * plan.waves >= plan.blocks and plan.wave * (plan.waves - 1) < plan.blocks
         assert plan.per_block == (1 if n_lanes < megakernel.JVP_RESIDENT_THREADS else eff)
         assert plan.log_terms == (2 * max_depth + 1 if plan.blocks > 1 else 0)
@@ -178,3 +185,66 @@ def test_grad_grid_reaches_every_item_once(eff):
         # a warp walks one sample of 32 adjacent lanes
         first = walked[: min(items, 32)]
         assert set(megakernel_grad.item_at(first, eff)[1].tolist()) == {0}
+
+
+@pytest.mark.parametrize(
+    "name,w,h,spp,config",
+    [
+        ("caustics.json", W, H, 16, RenderConfig(max_depth=3)),
+        ("scaled.json", 3, 2, 144, RenderConfig(max_depth=3)),  # two waves of 72 samples
+        ("caustics.json", 3, 2, 81, RenderConfig(max_depth=100)),  # a 64-thread log: two waves of 41
+    ],
+    ids=["one-wave", "two-waves", "deep-two-waves"],
+)
+def test_k1_combine_is_the_running_sum(name, w, h, spp, config):
+    sums, counts, terms = _logged_walk(_scene(name, w, h), w, h, spp, config, seed=13)
+    n, eff = counts.shape
+    plan = megakernel.k1_plan(n, eff, config.max_depth)
+    assert plan.per_block == 1 and plan.waves == (2 if spp > 64 else 1)
+    assert plan.thread_floats == 4 and plan.lane_floats == 3
+    acc = _combine(plan, counts, terms)
+    assert torch.equal(acc.T.contiguous().view(torch.int32), sums.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("eff", [4, 16, 81])
+@pytest.mark.parametrize("max_depth", [4, 100])
+def test_k1_plan_reaches_every_sample_once(eff, max_depth):
+    for n_lanes in (1, 77, 1001, 12_289):
+        plan = megakernel.k1_plan(n_lanes, eff, max_depth)
+        assert plan.threads <= megakernel.PLAN_MAX_THREADS and plan.shared <= megakernel.PLAN_SHARED_LIMIT
+        assert (plan.per_block, plan.blocks, plan.log_terms) == (1, eff, 2 * max_depth + 1)
+        assert plan.wave * plan.waves >= plan.blocks and plan.wave * (plan.waves - 1) < plan.blocks
+        seen = torch.zeros((n_lanes, eff), dtype=torch.int64)
+        cta, wave, thread = torch.meshgrid(torch.arange(plan.n_ctas(n_lanes)), torch.arange(plan.waves),
+                                           torch.arange(plan.threads), indexing="ij")
+        lane, sample = plan.item(cta, wave, thread)
+        walks = (lane < n_lanes) & (sample < eff)
+        seen.index_put_((lane[walks], sample[walks]), torch.ones(()).long(), accumulate=True)
+        assert bool((seen == 1).all())
+
+
+def test_k1_plan_per_shape():
+    """A thread a sample at the gradient path's shape, with smaller logs
+    than K2's; a thread a lane (no plan) where the lanes fill the card, a
+    lane has one sample, or not even one thread's log fits."""
+    plan = megakernel.k1_plan(128 * 96, 16, 4)
+    assert (plan.per_block, plan.blocks, plan.lanes_per_cta, plan.threads) == (1, 16, 8, 128)
+    assert plan.shared == 4 * (128 * (3 * 9 + 4) + 3 * 8) < megakernel.jvp_plan(128 * 96, 16, 4).shared
+    assert megakernel.k1_plan(megakernel.K1_RESIDENT_THREADS, 16, 4) is None
+    assert megakernel.k1_plan(512 * 384, 16, 4) is None
+    assert megakernel.k1_plan(77, 1, 4) is None
+    assert megakernel.k1_plan(1, 16, 9683).threads == 1
+    assert megakernel.k1_plan(1, 16, 9684) is None
+
+
+
+@pytest.mark.parametrize("w,h", [(128, 96), (192, 144), (256, 192), (320, 240), (384, 288), (512, 384)])
+def test_k1_regime_at_the_sweep_shapes(w, h):
+    """The shapes of the sweep that placed K1's threshold (16 spp,
+    max_depth 4): a thread a (lane, sample) up to 320x240, in one wave of
+    CTAs of 8 lanes x 16 samples; a thread a lane from 384x288 on."""
+    plan = megakernel.k1_plan(w * h, 16, 4)
+    if w * h <= 320 * 240:
+        assert (plan.per_block, plan.lanes_per_cta, plan.wave, plan.waves) == (1, 8, 16, 1)
+    else:
+        assert plan is None

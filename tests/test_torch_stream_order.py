@@ -1,4 +1,4 @@
-"""K5's exactness arguments, on the CPU (``kajo_tpu_torch/csrc/stream_trace.cu``):
+"""K5's and K6's exactness arguments, on the CPU (``kajo_tpu_torch/csrc/stream_trace.cu``):
 
   * a warp decides a block for four consecutive rays, which is exact only
     because a ray's answer depends on no other ray: the plain K5 on the
@@ -12,7 +12,13 @@
     zero and subnormal direction components, origins on box faces and
     origins 1e5 units out.
 
-Small scenes, no JAX: the kernel itself is held on the card
+K6 (the any-hit test) goes further: the plain K6 on the rays in other
+orders and on the blocks in other orders gives the same bits, so a ray may
+stop at its first occluder and a warp once all its rays are occluded; and
+on K6's own cuts the superblock test admits every block the block test
+admits.
+
+Small scenes, no JAX: the kernels themselves are held on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7)."""
 
 import numpy as np
@@ -130,3 +136,75 @@ def test_superblock_nan_axis_constrains_nothing():
     t_loose, entered_loose = st._slab(o, d, sbox, superblock=True)
     assert bool(entered_loose.all()) and bool((t_loose == 0).all())
     assert not bool(st._slab(o, d, sbox)[1].any())  # the block test's rule rejects both
+
+
+# ---- K6: an any-hit answer, which no ray order and no block order changes
+
+
+def _shadow_args(prep, seed):
+    """K6's inputs on ``_rays``: cuts at 1.5x each ray's nearest hit (so
+    most hit rays are occluded by the sphere they hit), the bound where it
+    missed, zero on every seventh ray; on every other ray the nearest hit's
+    own packed row excluded, as a shadow query excludes its light."""
+    o, d, bound = _rays(prep, seed)
+    t, idx = st.nearest_sphere_plain(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    cut = torch.where(idx >= 0, t * 1.5, bound)
+    cut[::7] = 0.0
+    excl = torch.where(torch.arange(o.shape[0]) % 2 == 0, idx, -1).to(torch.int32)
+    return o, d, cut, excl
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
+def test_occlusion_does_not_depend_on_ray_order(jitter):
+    prep = _scene(jitter)
+    o, d, cut, excl = _shadow_args(prep, seed=6)
+    args = (prep.stream_packed, prep.stream_boxes, prep.stream_sboxes)
+    out = st.occluded_sphere_plain(prep.rigid, o, d, cut, excl, *args)
+    occluded = out == 0
+    assert 200 < int(occluded.sum()) < o.shape[0] - 200
+    n = o.shape[0]
+    for label, perm in {"reversed": torch.arange(n - 1, -1, -1),
+                        "random": torch.tensor(np.random.default_rng(8).permutation(n))}.items():
+        got = st.occluded_sphere_plain(prep.rigid, o[perm], d[perm], cut[perm], excl[perm], *args)
+        back = torch.empty_like(got)
+        back[perm] = got
+        assert torch.equal(back.view(torch.int32), out.view(torch.int32)), label
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
+def test_occlusion_does_not_depend_on_block_order(jitter):
+    """The packed blocks (records, boxes and the excluded rows with them)
+    visited in reversed and in a random order: the same bits on every ray,
+    which is what lets K6 stop a ray at its first occluder and test a
+    superblock before its blocks."""
+    prep = _scene(jitter)
+    o, d, cut, excl = _shadow_args(prep, seed=9)
+    packed, boxes = prep.stream_packed, prep.stream_boxes
+    out = st.occluded_sphere_plain(prep.rigid, o, d, cut, excl, packed, boxes)
+    n_blocks = boxes.shape[0]
+    rng = np.random.default_rng(10)
+    for label, order in {"reversed": torch.arange(n_blocks - 1, -1, -1),
+                         "random": torch.tensor(rng.permutation(n_blocks))}.items():
+        packed_p = packed.view(n_blocks, st.BLOCK, -1)[order].reshape(packed.shape)
+        new_block = torch.empty_like(order)
+        new_block[order] = torch.arange(n_blocks)  # where each old block goes
+        excl_p = torch.where(excl >= 0, new_block[excl.clamp_min(0).long() // st.BLOCK] * st.BLOCK
+                             + excl.clamp_min(0) % st.BLOCK, -1).to(torch.int32)
+        got = st.occluded_sphere_plain(prep.rigid, o, d, cut, excl_p, packed_p, boxes[order].contiguous())
+        assert torch.equal(got.view(torch.int32), out.view(torch.int32)), label
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
+def test_superblock_admits_every_block_k6_tests(jitter):
+    """On K6's own inputs: wherever a block's box test admits a ray at its
+    cut (the only bound K6 tests a block against before the ray is
+    occluded), the block's superblock test admits it too."""
+    prep = _scene(jitter)
+    o, d, cut, _ = _shadow_args(prep, seed=12)
+    boxes, sboxes = prep.stream_boxes, prep.stream_sboxes
+    member = torch.arange(boxes.shape[0]) // (st.V2_SUPER // st.BLOCK)
+    t_b, entered_b = st._slab(o, d, boxes)
+    t_s, entered_s = st._slab(o, d, sboxes, superblock=True)
+    admitted = entered_b & (t_b * boxes[:, 6] < cut[:, None])
+    assert int(admitted.sum()) > 500
+    assert bool((entered_s & (t_s * sboxes[:, 6] < cut[:, None]))[:, member][admitted].all())

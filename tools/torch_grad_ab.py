@@ -3,7 +3,7 @@ checkout against those of other checkouts on one CUDA GPU: ptxas' register
 and spill report of each, how far their outputs part, and their times in
 one process.
 
-    python3 tools/torch_grad_ab.py OTHER_ROOT [OTHER_ROOT ...]
+    python3 tools/torch_grad_ab.py [--case TEXT] OTHER_ROOT [OTHER_ROOT ...]
 
 An OTHER_ROOT is the root of another checkout (for example a parent commit
 unpacked with ``git archive``) holding ``kajo_tpu_torch/csrc/megakernel_jvp.cu``,
@@ -20,8 +20,12 @@ zeroed buffer with room for a CTA per 32 (lane, sample) items, summed over
 the CTAs; two tables may part by at most 1e-4 max|other| + 1e-7 per field
 (chip_smoke.FIELD_BAR). At the four timing shapes each kernel is timed with
 CUDA events over REPS launches into its preallocated buffer, in the order
-of the others, this, this, the others reversed. The last line is a JSON
-summary; the exit code is 1 if an output is outside its bar.
+of the others, this, this, the others reversed. ``--case TEXT`` runs only
+the cases whose label holds TEXT (for example ``mirror`` or ``two waves``,
+phase 11's K2 cases whose samples go through two waves of the log). Every
+kernel is synchronised after its launch, so a fault names its kernel and
+checkout (with ``CUDA_LAUNCH_BLOCKING=1`` also the launch). The last line
+is a JSON summary; the exit code is 1 if an output is outside its bar.
 """
 
 from __future__ import annotations
@@ -111,6 +115,9 @@ def main(argv) -> int:
     from kajo_tpu_torch.scene.procedural import random_spheres_scene
     from kajo_tpu_torch.scene.testscene import build_mirror_cluster, build_test_scene, build_two_light_scene
 
+    only = None
+    if argv[:1] == ["--case"]:
+        only, argv = argv[1], argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -180,7 +187,15 @@ def main(argv) -> int:
                   RenderConfig(max_depth=20)),
         make_case("caustics 16x12 256spp (K2 in two waves)", parser.load(caustics, 16 / 12, dev), 16, 12, 256,
                   RenderConfig(max_depth=chip_smoke.GRAD_D)),
+        make_case("caustics 16x12 144spp depth 3 (K2 in two waves)", parser.load(caustics, 16 / 12, dev), 16, 12, 144,
+                  RenderConfig(max_depth=chip_smoke.GRAD_D)),
+        make_case("caustics 8x6 81spp depth 100 (K2 in two waves)", parser.load(caustics, 8 / 6, dev), 8, 6, 81,
+                  RenderConfig(max_depth=100)),
     ]
+    timing = cases[:4]
+    if only is not None:
+        cases = [c for c in cases if only in c.label]
+        timing = [c for c in timing if any(c is x for x in cases)]
     ok = True
     gaps = {}
     outs = {}
@@ -226,7 +241,7 @@ def main(argv) -> int:
 
     ms = {}
     order = [*others, "this", "this", *others[::-1]]
-    for case in cases[:4]:
+    for case in timing:
         for k in SOURCES:
             o2, o3 = outs[case.label, "this"]
             bufs = {name: outs[case.label, name][0 if k == "K2" else 1] for name in roots}

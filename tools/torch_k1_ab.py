@@ -5,14 +5,22 @@ their times in one process.
     python3 tools/torch_k1_ab.py OTHER_ROOT [OTHER_ROOT ...]
 
 An OTHER_ROOT is the root of another checkout (for example a parent commit
-unpacked with ``git archive``) holding ``kajo_tpu_torch/csrc/megakernel.cu``
-and the headers it includes. Every K1 is built at once with this checkout's
-nvcc flags into ``build/k1_ab/``, fed the same packed scene and parameters
-(this checkout's ``prepare_pass``) on the cases of chip_smoke.py's phase 3
-and on caustics at 512x384, 16 spp (the main path's shape), and timed there
+unpacked with ``git archive``, or a copy of this one whose
+``kajo_tpu_torch/csrc/`` was edited to a variant) holding
+``kajo_tpu_torch/csrc/megakernel.cu`` and the headers it includes. Every K1
+is built at once with this checkout's nvcc flags into ``build/k1_ab/``, fed
+the same packed scene and parameters (this checkout's ``prepare_pass``) and
+compared bit for bit on the cases of chip_smoke.py's phase 3, at the
+gradient path's shape (``build_test_scene`` 128x96, 16 spp, max_depth 4),
+on K2's two-wave cases of phase 11 (caustics 16x12 at 144 spp, max_depth
+3, and 8x6 at 81 spp, max_depth 100) and at the timing shapes. It is timed
 with CUDA events in the order of the others, this, this, the others
-reversed, 100 launches each. The last line is a JSON summary; the exit code
-is 1 if one differs from this checkout's in a bit.
+reversed, REPS launches each, at ``build_test_scene`` 128x96, 192x144,
+256x192, 320x240, 384x288 and 512x384, 16 spp, max_depth 4, and caustics
+384x288, 16 spp (the sweep that places K1's threshold between a thread a
+sample and a thread a lane) and at caustics 512x384, 16 spp (the main
+path's shape). The last line is a JSON summary; the exit code is 1 if
+one differs from this checkout's in a bit.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ def main(argv) -> int:
     from kajo_tpu_torch.models.integrator import RenderConfig
     from kajo_tpu_torch.ops.megakernel import prepare_pass
     from kajo_tpu_torch.scene import parser
-    from kajo_tpu_torch.scene.testscene import build_two_light_scene
+    from kajo_tpu_torch.scene.testscene import build_test_scene, build_two_light_scene
 
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -89,17 +97,33 @@ def main(argv) -> int:
 
     dev = torch.device("cuda")
     caustics = str(ROOT / "data" / "caustics.json")
-    cases = [
-        ("caustics 64x48 4spp", parser.load(caustics, 64 / 48, dev), 64, 48, 4, RenderConfig()),
+    d4 = RenderConfig(max_depth=4)
+    cases = [  # (label, scene, w, h, spp, config, timed)
+        ("caustics 64x48 4spp", parser.load(caustics, 64 / 48, dev), 64, 48, 4, RenderConfig(), False),
         ("scaled.json 64x48 4spp", parser.load(str(ROOT / "data" / "scaled.json"), 64 / 48, dev), 64, 48, 4,
-         RenderConfig()),
+         RenderConfig(), False),
         ("two-light one_light_nee 64x48 4spp", build_two_light_scene(64 / 48, dev), 64, 48, 4,
-         RenderConfig(one_light_nee=True)),
-        ("caustics full_mis 64x48 4spp", parser.load(caustics, 64 / 48, dev), 64, 48, 4, RenderConfig(full_mis=True)),
-        ("caustics 512x384 16spp", parser.load(caustics, 512 / 384, dev), 512, 384, 16, RenderConfig()),
+         RenderConfig(one_light_nee=True), False),
+        ("caustics full_mis 64x48 4spp", parser.load(caustics, 64 / 48, dev), 64, 48, 4, RenderConfig(full_mis=True),
+         False),
+        ("caustics 16x12 144spp depth 3 (two waves)", parser.load(caustics, 16 / 12, dev), 16, 12, 144,
+         RenderConfig(max_depth=3), False),
+        ("caustics 8x6 81spp depth 100 (two waves)", parser.load(caustics, 8 / 6, dev), 8, 6, 81,
+         RenderConfig(max_depth=100), False),
+        ("build_test_scene 128x96 16spp depth 4 (the gradient path's)", build_test_scene(128 / 96, dev), 128, 96, 16,
+         d4, True),
+        ("build_test_scene 192x144 16spp depth 4", build_test_scene(192 / 144, dev), 192, 144, 16, d4, True),
+        ("build_test_scene 256x192 16spp depth 4", build_test_scene(256 / 192, dev), 256, 192, 16, d4, True),
+        ("build_test_scene 320x240 16spp depth 4", build_test_scene(320 / 240, dev), 320, 240, 16, d4, True),
+        ("build_test_scene 384x288 16spp depth 4", build_test_scene(384 / 288, dev), 384, 288, 16, d4, True),
+        ("build_test_scene 512x384 16spp depth 4", build_test_scene(512 / 384, dev), 512, 384, 16, d4, True),
+        ("caustics 384x288 16spp", parser.load(caustics, 384 / 288, dev), 384, 288, 16, RenderConfig(), True),
+        ("caustics 512x384 16spp (the main path's)", parser.load(caustics, 512 / 384, dev), 512, 384, 16,
+         RenderConfig(), True),
     ]
     same_all = True
-    for label, scene, w, h, spp, cfg in cases:
+    passes = []
+    for label, scene, w, h, spp, cfg, is_timed in cases:
         ps = prepare_pass(scene, w, h, spp, cfg)
         a = launch(libs["this"], ps, 99)
         for o in others:
@@ -108,13 +132,20 @@ def main(argv) -> int:
             same = torch.equal(a.view(torch.int32), b.view(torch.int32))
             same_all &= same
             print(f"{label}: this K1 == {o}'s (bits) {same}, max |diff| {(a - b).abs().max().item():.3e}")
+        if is_timed:
+            passes.append((label, ps))
 
-    ms = {name: [] for name in sources}
+    ms = {}
     order = [*others, "this", "this", *others[::-1]]
-    for name in order:
-        ms[name].append(chip_smoke.timed(lambda n=name: launch(libs[n], ps, 99), REPS))
-    print(f"timing caustics 512x384 16spp on {card}, {REPS} launches each, order {', '.join(order)}: "
-          + "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in v) + " ms" for n, v in ms.items()))
+    for label, ps in passes:
+        times = {name: [] for name in sources}
+        for name in order:
+            times[name].append(chip_smoke.timed(lambda n=name: launch(libs[n], ps, 99), REPS))
+        ms[label] = times
+        print(f"timing {label} on {card}, {REPS} launches each, order {', '.join(order)}: "
+              + "; ".join(f"{n} " + ", ".join(f"{t:.4f}" for t in v) + " ms" for n, v in times.items()))
+        for o in others:
+            print(f"{label}: this / {o} {min(times['this']) / min(times[o]):.4f} (best of each)")
     print(json.dumps({"card": card, "bit_equal": same_all, "ms": ms,
                       "ptxas": {n: r for n, (_, r) in built.items()}}))
     return 0 if same_all else 1

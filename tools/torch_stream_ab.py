@@ -13,8 +13,8 @@ so whatever a wrapper does around its launch is timed with it. The inputs are th
 (``random_spheres_scene(100_000, seed=0, extent=60)``, 128x96, 4 spp, depth
 2, one-light NEE), rigid and with ``scale_jitter=0.5``, recorded with this
 checkout's ``chip_smoke.record_stream_calls``; every checkout runs each
-call (K5 on the recorded rays, boxes and packed scene, and the recorded
-superblocks if its wrapper takes them), and each call is timed with
+call (K5 and K6 on the recorded rays, boxes and packed scene, and the
+recorded superblocks if its wrapper takes them), and each call is timed with
 CUDA events in the order of the others, this, this, the others reversed,
 REPS launches each. The last line is a JSON summary; the exit code is 1 if
 a result differs from this checkout's in a bit.
@@ -55,13 +55,12 @@ def ptxas_report(st) -> list[str]:
 
 def launch(st, kind: str, args):
     """One K5 ("nearest") or K6 ("occluded") call through ``st``'s wrapper
-    -> its outputs as a tuple. K5 gets as many of the recorded arguments
-    (rigid, o, d, bound, packed, boxes, then the superblocks) as its
-    wrapper takes."""
-    if kind == "nearest":
-        n_args = len(inspect.signature(st.launch_nearest).parameters)
-        return tuple(st.launch_nearest(*args[:n_args]))
-    return (st.launch_occluded(*args),)
+    -> its outputs as a tuple. Each gets as many of the recorded arguments
+    (K5: rigid, o, d, bound, packed, boxes; K6: rigid, o, d, cut, excl,
+    packed, boxes; then the superblocks) as its wrapper takes."""
+    fn = st.launch_nearest if kind == "nearest" else st.launch_occluded
+    out = fn(*args[:len(inspect.signature(fn).parameters)])
+    return tuple(out) if kind == "nearest" else (out,)
 
 
 def main(argv) -> int:
