@@ -98,24 +98,30 @@ with a non-zero exit when it fails:
    every ray, t equal to the bit; print how many rays' winners differ from
    K5's on the same inputs and the largest origin norm among them (a
    report: the designs' tile votes differ from K5's per-ray cull only for
-   rays far outside the scene);
+   rays far outside the scene), the (ray, block) pairs the plain version
+   scanned and the (ray, sphere) pairs among them with a discriminant >= 0
+   (stream_trace.counting_scans: the design's own bound);
 15. drive the big-scene path under each design, the CLI's main() as in
    phase 8 inside nearest_design(...), counting launches from 0: the
    design's kernel must launch, K5 not at all, K6 (shadow rays of the rigid
    scene) too; the PNG as in phase 8; and one pass under each design, rigid
    and scale_jitter=0.5, within the bars of phase 3 of the K5 pass with the
    same seed;
-16. time each design's kernel per call with CUDA events (20 launches) on the
+16. print ptxas' registers and spills of each K7, K8 and K9 entry; time
+   each design's kernel per call with CUDA events (20 launches) on the
    recorded rigid calls of phase 14, beside K5 on the same call, its host-
-   side lists (5 runs) and its plain version (1 run, phase 14); its bound is
-   K5's on the same call (same inputs, same answer); and a pass and 8
-   passes in a batch under each design.
+   side lists (5 runs) and its plain version (1 run, phase 14), with its own
+   bound (the pairs of phase 14) and K5's on the same call; and a pass and
+   8 passes in a batch under each design.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
 peaks), counted on this run's data. A sphere test's ray-independent part
 (cx²+cy²+cz²-r², 6 operations of the rigid record) counts once per sphere,
-the rest once per ray and sphere. K1 counts the ray-object tests of its
+the rest once per ray and sphere; for K7-K9 its roots (OPS_RIGID_ROOTS,
+OPS_GENERAL_ROOTS) count only where the discriminant is >= 0, as the
+function needs them nowhere else (K1-K6's bounds still charge every test
+its roots). K1 counts the ray-object tests of its
 pass and its shading, at one FP32 operation per float operation of
 csrc/megakernel.cu (transcendentals one each, integer work and compares
 none): per sample its camera ray (OPS_CAMERA), per path vertex its hit
@@ -139,12 +145,15 @@ operation) and the shading of a diffuse vertex (OPS_SHADE_TANGENT, and
 OPS_NEE_TANGENT per NEE light sampled), counted from csrc/walk.cuh's bounce
 at one to three FP32 operations per Dual operation; no value work counted
 twice. Its bytes are the packed scene, the cotangent and the [S, 4] table.
-K5/K6 count (and K7-K9 take K5's count), per ray, the 128-sphere blocks it
-needs: those whose box it enters below its final answer (K5: its hit or its
-bound; K6: its cut, or, once occluded, the first block holding an
-occluder); their bytes are the boxes, the records of the blocks some ray
-needs, o and d of the rays with a positive bound, and the bound in and the
-results out.
+K5/K6 count, per ray, the 128-sphere blocks it needs: those whose box it
+enters below its final answer (K5: its hit or its bound; K6: its cut, or,
+once occluded, the first block holding an occluder); their bytes are the
+boxes, the records of the blocks some ray needs, o and d of the rays with a
+positive bound, and the bound in and the results out. K7-K9 count the
+(ray, block) pairs their own function scans, which their tile votes
+decide (their plain versions count them), at the same operations per
+test, and their bytes the boxes, the records of the blocks scanned, the
+rays and the results; K5's bound on the same call is printed beside it.
 
 Every line is flushed as it is printed, and a phase that stalls for
 STALL_S seconds dumps the Python stack of every thread and ends the run.
@@ -182,6 +191,10 @@ FP32_OPS_PER_S = 67e12      # H100 SXM FP32 outside the tensor cores, published
 # the ray-independent cx²+cy²+cz²-r² once per sphere
 OPS_PLANE, OPS_SPHERE_RIGID, OPS_SPHERE_GENERAL = 14, 25, 63
 OPS_SPHERE_RIGID_ONCE = 6
+# of a sphere test's operations, those of its roots (square root, q, the
+# divisions, min and max, det scaling), which an answer needs only where the
+# discriminant is >= 0 (csrc/stream_trace.cuh rigid_roots, general_roots)
+OPS_RIGID_ROOTS, OPS_GENERAL_ROOTS = 7, 9
 # FP32 tangent operations per path vertex and direction of K4's function
 # (csrc/walk.cuh bounce; a Dual product 3, a sum 1, a quotient 3, a product
 # or quotient by a float 1): a diffuse vertex's hit point, deferred MIS
@@ -1183,11 +1196,32 @@ def gradient_phases(dev, card: str) -> list:
 
 
 DESIGNS = ("v1", "v1-frustum", "v1-near-far", "v2", "v3")  # K7 in three orders, K8, K9
-DESIGN_KERNELS = {  # kernel name, source, the TPU kernel it replaces
-    "v1": ("stream_nearest_v1", "kajo_tpu_torch/csrc/stream_trace_v1.cu", "kajo_tpu/ops/pallas/stream_trace.py:141"),
-    "v2": ("stream_nearest_v2", "kajo_tpu_torch/csrc/stream_trace_v2.cu", "kajo_tpu/ops/pallas/stream_trace.py:516"),
-    "v3": ("stream_nearest_v3", "kajo_tpu_torch/csrc/stream_trace_v3.cu", "kajo_tpu/ops/pallas/stream_trace.py:757"),
+DESIGN_KERNELS = {  # kernel name, source, the TPU kernel it replaces, what its entries' mangled names hold
+    "v1": ("stream_nearest_v1", "kajo_tpu_torch/csrc/stream_trace_v1.cu", "kajo_tpu/ops/pallas/stream_trace.py:141",
+           "nearest_v1"),
+    "v2": ("stream_nearest_v2", "kajo_tpu_torch/csrc/stream_trace_v2.cu", "kajo_tpu/ops/pallas/stream_trace.py:516",
+           "nearest_v2"),
+    "v3": ("stream_nearest_v3", "kajo_tpu_torch/csrc/stream_trace_v3.cu", "kajo_tpu/ops/pallas/stream_trace.py:757",
+           "v3_"),
 }
+
+
+def design_bound(args, scans):
+    """(bytes, FP32 operations) one call of a nearest-hit design must move
+    and do: the (ray, 128-sphere block) pairs its function scans, as its
+    plain version counted them (``counting_scans``), each test at K5's
+    operations without its roots, and the roots only on the (ray, sphere)
+    pairs whose discriminant is >= 0; the boxes, the records of the blocks
+    scanned, o, d and the bound in, t and row out."""
+    rigid, o, packed, boxes = args[0], args[1], args[4], args[5]
+    touched, tests, roots = len(scans["blocks"]), scans["pairs"] * 128, int(scans["roots"])
+    n_bytes = boxes.numel() * 4 + touched * 128 * packed.shape[1] * 4 + o.shape[0] * (24 + 4 + 8)
+    if rigid:
+        n_ops = (tests * (OPS_SPHERE_RIGID - OPS_RIGID_ROOTS) + roots * OPS_RIGID_ROOTS
+                 + touched * 128 * OPS_SPHERE_RIGID_ONCE)
+    else:
+        n_ops = tests * (OPS_SPHERE_GENERAL - OPS_GENERAL_ROOTS) + roots * OPS_GENERAL_ROOTS
+    return n_bytes, n_ops
 
 
 def hold_design_calls(scene, label: str, design: str) -> list:
@@ -1195,7 +1229,8 @@ def hold_design_calls(scene, label: str, design: str) -> list:
     one config-5 pass under the design, hold the kernel against its plain
     version on each (same winner on every ray, t to the bit) and count the
     rays whose winner differs from K5's on the same inputs -> per call
-    {args, t (the kernel's), t5 (K5's), plain_ms, max_abs}."""
+    {args, t (the kernel's), t5 (K5's), plain_ms, max_abs, scans (what the
+    plain version scanned, for the design's own bound)}."""
     from kajo_tpu_torch.models import wavefront
     from kajo_tpu_torch.models.integrator import RenderConfig
     from kajo_tpu_torch.ops import stream_trace as st
@@ -1215,7 +1250,8 @@ def hold_design_calls(scene, label: str, design: str) -> list:
         t_k, i_k = launch(*args)
         torch.cuda.synchronize()
         t0 = time.time()
-        t_p, i_p = plain(*args)
+        with st.counting_scans() as scans:
+            t_p, i_p = plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         t_5, i_5 = st.launch_nearest(*args[:6])
@@ -1226,10 +1262,11 @@ def hold_design_calls(scene, label: str, design: str) -> list:
         max_abs = (t_k - t_p).abs().max().item()
         print(f"config 5 {label} {design} call {i}: {args[1].shape[0]} rays, {int((i_p >= 0).sum())} hits; kernel == "
               f"plain on every ray (bits): {ok} (plain {plain_ms:.0f} ms); winners unlike K5's on {int(differ.sum())} "
-              f"rays, largest origin norm among them {far:.4g}")
+              f"rays, largest origin norm among them {far:.4g}; {scans['pairs']} (ray, block) pairs scanned, "
+              f"{int(scans['roots'])} (ray, sphere) pairs with discr >= 0")
         if not ok:
             fail(f"config 5 {label} {design}: kernel and plain version differ on call {i}")
-        out.append(dict(args=args, t=t_k, t5=t_5, plain_ms=plain_ms, max_abs=max_abs))
+        out.append(dict(args=args, t=t_k, t5=t_5, plain_ms=plain_ms, max_abs=max_abs, scans=scans))
     return out
 
 
@@ -1285,9 +1322,12 @@ def design_phases(dev, card: str, scenes: dict) -> list:
             compare(f"wavefront pass {design} vs K5, config 5 {label}", got, want)
     print(f"phase 15: {time.time() - t0:.1f} s")
 
-    # 16. per call on the recorded rigid calls: kernel (CUDA events), host lists, plain; K5's bound
+    # 16. per call on the recorded rigid calls: kernel (CUDA events), host lists, plain; its own bound and K5's
     t0 = time.time()
     scene = scenes["rigid"]
+    for kind, (_, source, _, entry) in DESIGN_KERNELS.items():
+        for mangled, regs, spills in ptxas_entries(Path(source).name, entry):
+            print(f"ptxas {kind} {mangled}: {regs} registers, {spills} bytes spill stores")
     stats = {}
     for design in DESIGNS:
         kind = design[:2]
@@ -1300,22 +1340,26 @@ def design_phases(dev, card: str, scenes: dict) -> list:
             k5_ms = timed(lambda a=args, sb=st.v2_superblocks(args[5]): st.launch_nearest(*a[:6], sb), 20)
             has_lists = design in ("v1-frustum", "v1-near-far", "v2")
             l_ms = timed(lambda a=args: st.design_lists(design, *a[1:4], a[5]), 5) if has_lists else 0.0
-            n_bytes, n_ops = call_bound("nearest", args[:6], row["t5"])
+            n_bytes, n_ops = design_bound(args, row["scans"])
             b_ms, by = bound(n_bytes, n_ops)
-            per.append((k_ms, l_ms, row["plain_ms"], b_ms, n_bytes, n_ops))
+            b5_ms, by5 = bound(*call_bound("nearest", args[:6], row["t5"]))
+            per.append((k_ms, l_ms, row["plain_ms"], b_ms, b5_ms, n_bytes, n_ops))
             kept = ""
             if has_lists:  # the recorded call's lists: (..., lists, counts)
                 lists, counts = args[6][-2:]
                 kept = f" (the lists keep {counts.float().mean().item():.1f} of {lists.shape[1]} per tile on average)"
             print(f"timing {design} call {i} ({args[1].shape[0]} rays) on {card}: kernel {k_ms:.4f} ms, host lists "
-                  f"{l_ms:.4f} ms{kept}, plain {row['plain_ms']:.0f} ms, K5 {k5_ms:.4f} ms; K5's bound {b_ms:.6f} ms "
-                  f"({by}), {k_ms / b_ms:.0f}x the bound")
-        mean = [sum(x[j] for x in per) / len(per) for j in range(4)]
-        by = bound(sum(x[4] for x in per), sum(x[5] for x in per))[1]
-        stats[design] = dict(ms=mean[0], lists_ms=mean[1], plain_ms=mean[2], bound_ms=mean[3], bound_by=by,
-                             calls_per_pass=len(per))
+                  f"{l_ms:.4f} ms{kept}, plain {row['plain_ms']:.0f} ms, K5 {k5_ms:.4f} ms; own bound {b_ms:.6f} ms "
+                  f"({by}: {row['scans']['pairs']} (ray, block) pairs, {int(row['scans']['roots'])} with roots, "
+                  f"{n_ops:.4g} FP32 ops), {k_ms / b_ms:.1f}x it; "
+                  f"K5's bound {b5_ms:.6f} ms ({by5}), {k_ms / b5_ms:.0f}x it")
+        mean = [sum(x[j] for x in per) / len(per) for j in range(5)]
+        by = bound(sum(x[5] for x in per), sum(x[6] for x in per))[1]
+        stats[design] = dict(ms=mean[0], lists_ms=mean[1], plain_ms=mean[2], bound_ms=mean[3], k5_bound_ms=mean[4],
+                             bound_by=by, calls_per_pass=len(per))
         print(f"{design}: {len(per)} calls per pass; mean per call kernel {mean[0]:.4f} ms, host lists "
-              f"{mean[1]:.4f} ms, plain {mean[2]:.0f} ms, bound {mean[3]:.6f} ms ({by}), {mean[0] / mean[3]:.0f}x")
+              f"{mean[1]:.4f} ms, plain {mean[2]:.0f} ms, own bound {mean[3]:.6f} ms ({by}), {mean[0] / mean[3]:.1f}x; "
+              f"K5's bound {mean[4]:.6f} ms, {mean[0] / mean[4]:.0f}x")
     # a pass and a batch of 8 under each design, K5 first and last
     for design in ("v4", *DESIGNS, "v4"):
         pass_ms = []
@@ -1335,7 +1379,7 @@ def design_phases(dev, card: str, scenes: dict) -> list:
     print(f"phase 16: {time.time() - t0:.1f} s")
 
     records = []
-    for kind, (name, source, replaces) in DESIGN_KERNELS.items():
+    for kind, (name, source, replaces, entry) in DESIGN_KERNELS.items():
         own = [d for d in DESIGNS if d[:2] == kind]
         row = stats[kind]
         records.append({
@@ -1348,8 +1392,10 @@ def design_phases(dev, card: str, scenes: dict) -> list:
             "max_abs_err": max(r["max_abs"] for label in scenes for d in own for r in held[(label, d)]),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,  # no single PyTorch call computes a nearest-sphere trace
+            "k5_bound_ms": row["k5_bound_ms"],
             "lists_ms": row["lists_ms"],
-            **({"orders": {d: {k: stats[d][k] for k in ("ms", "lists_ms", "plain_ms")} for d in own}}
+            **dict(zip(("registers", "spills"), ptxas_usage(Path(source).name, entry))),
+            **({"orders": {d: {k: stats[d][k] for k in ("ms", "lists_ms", "plain_ms", "bound_ms")} for d in own}}
                if len(own) > 1 else {}),
         })
     return records

@@ -3,7 +3,9 @@
 // (stream_trace_v2.cu) and K9 (stream_trace_v3.cu): the ray record, the
 // rigid and general sphere quadratics, the slab test of a block's box, and,
 // for K7-K9, the staging of a block's records in shared memory and the
-// strict nearest-hit scan of a staged block.
+// strict nearest-hit scan of a staged block (K8 and K9 stage rigid records
+// with their ray-independent term and scan with an early exit; see
+// stage_blocks).
 //
 // One copy on purpose, as kajo_tpu/ops/pallas/stream_trace.py keeps one
 // _quadratic_rigid (:74), one _quadratic_general (:91) and one _slab_test
@@ -64,14 +66,8 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ ray_o, const f
   return r;
 }
 
-// world-space stable quadratic with a == 1 (|d| == 1)
-__device__ __forceinline__ bool quadratic_rigid(const float* s, const Ray& r, float& t) {
-  const float cx = s[0], cy = s[1], cz = s[2], r2 = s[3];
-  const float d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
-  const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
-  const float b = 2.0f * (r.d_dot_o - d_dot_c);
-  const float cq = r.o2 - 2.0f * o_dot_c + (cx * cx + cy * cy + cz * cz - r2);
-  const float discr = b * b - 4.0f * cq;
+// the roots of the rigid quadratic from b, its constant term and discr
+__device__ __forceinline__ bool rigid_roots(float b, float cq, float discr, float& t) {
   const float sq = safe_sqrt(discr);
   const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
   const float t1 = cq / (q == 0.0f ? 1.0f : q);
@@ -81,28 +77,61 @@ __device__ __forceinline__ bool quadratic_rigid(const float* s, const Ray& r, fl
   return discr >= 0.0f && hi >= 0.0f && q != 0.0f && t >= 0.0f;
 }
 
-// object-space stable quadratic with det-scaled t
-__device__ __forceinline__ bool quadratic_general(const float* s, const Ray& r, float& t) {
-  const float ox = s[0] * r.ox + s[1] * r.oy + s[2] * r.oz + s[9];
-  const float oy = s[3] * r.ox + s[4] * r.oy + s[5] * r.oz + s[10];
-  const float oz = s[6] * r.ox + s[7] * r.oy + s[8] * r.oz + s[11];
-  const float dx = s[0] * r.dx + s[1] * r.dy + s[2] * r.dz;
-  const float dy = s[3] * r.dx + s[4] * r.dy + s[5] * r.dz;
-  const float dz = s[6] * r.dx + s[7] * r.dy + s[8] * r.dz;
-  const float r2 = s[12], det = s[13];
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float b = 2.0f * (dx * ox + dy * oy + dz * oz);
-  const float cq = ox * ox + oy * oy + oz * oz - r2;
-  const float discr = b * b - 4.0f * a * cq;
+// the rigid quadratic's b, constant term and discriminant; k is its
+// ray-independent term cx*cx + cy*cy + cz*cz - r2
+__device__ __forceinline__ void rigid_terms(float cx, float cy, float cz, float k, const Ray& r, float& b, float& cq,
+                                            float& discr) {
+  const float d_dot_c = r.dx * cx + r.dy * cy + r.dz * cz;
+  const float o_dot_c = r.ox * cx + r.oy * cy + r.oz * cz;
+  b = 2.0f * (r.d_dot_o - d_dot_c);
+  cq = r.o2 - 2.0f * o_dot_c + k;
+  discr = b * b - 4.0f * cq;
+}
+
+// world-space stable quadratic with a == 1 (|d| == 1)
+__device__ __forceinline__ bool quadratic_rigid(const float* s, const Ray& r, float& t) {
+  const float cx = s[0], cy = s[1], cz = s[2], r2 = s[3];
+  float b, cq, discr;
+  rigid_terms(cx, cy, cz, cx * cx + cy * cy + cz * cz - r2, r, b, cq, discr);
+  return rigid_roots(b, cq, discr, t);
+}
+
+// the roots of the general quadratic from a, b, its constant term and discr
+// -> the object-space t (scaled by det by the caller)
+__device__ __forceinline__ bool general_roots(float a, float b, float cq, float discr, float& t_loc) {
   const float sq = safe_sqrt(discr);
   const float q = b < 0.0f ? (-b - sq) * 0.5f : (-b + sq) * 0.5f;
   const float t0 = q / (a == 0.0f ? 1.0f : a);
   const float t1 = cq / (q == 0.0f ? 1.0f : q);
   const float lo = tmin(t0, t1);
   const float hi = tmax(t0, t1);
-  const float t_loc = lo < 0.0f ? hi : lo;
-  t = t_loc * det;
-  return discr >= 0.0f && hi >= 0.0f && a != 0.0f && q != 0.0f && t >= 0.0f;
+  t_loc = lo < 0.0f ? hi : lo;
+  return discr >= 0.0f && hi >= 0.0f && a != 0.0f && q != 0.0f;
+}
+
+// the general quadratic's a, b, constant term and discriminant
+__device__ __forceinline__ void general_terms(const float* s, const Ray& r, float& a, float& b, float& cq,
+                                              float& discr) {
+  const float ox = s[0] * r.ox + s[1] * r.oy + s[2] * r.oz + s[9];
+  const float oy = s[3] * r.ox + s[4] * r.oy + s[5] * r.oz + s[10];
+  const float oz = s[6] * r.ox + s[7] * r.oy + s[8] * r.oz + s[11];
+  const float dx = s[0] * r.dx + s[1] * r.dy + s[2] * r.dz;
+  const float dy = s[3] * r.dx + s[4] * r.dy + s[5] * r.dz;
+  const float dz = s[6] * r.dx + s[7] * r.dy + s[8] * r.dz;
+  const float r2 = s[12];
+  a = dx * dx + dy * dy + dz * dz;
+  b = 2.0f * (dx * ox + dy * oy + dz * oz);
+  cq = ox * ox + oy * oy + oz * oz - r2;
+  discr = b * b - 4.0f * a * cq;
+}
+
+// object-space stable quadratic with det-scaled t
+__device__ __forceinline__ bool quadratic_general(const float* s, const Ray& r, float& t) {
+  float a, b, cq, discr, t_loc;
+  general_terms(s, r, a, b, cq, discr);
+  const bool roots = general_roots(a, b, cq, discr, t_loc);
+  t = t_loc * s[13];
+  return roots && t >= 0.0f;
 }
 
 template <bool RIGID>
@@ -158,6 +187,73 @@ __device__ __forceinline__ void nearest_in_block(const float* sph, int32_t base,
     if (quadratic<RIGID>(&sph[F * i], r, t) && t < t_best) {
       t_best = t;
       best = base + i;
+    }
+  }
+}
+
+// K8 and K9 stage a rigid record as (cx, cy, cz, k), k = cx*cx + cy*cy +
+// cz*cz - r2: the ray-independent term quadratic_rigid adds as one
+// parenthesised term, computed once a sphere with the same operations, so
+// the same bits. A general record is staged as it is. Stage nb blocks,
+// block j from packed block id(j), as nb * 128 consecutive staged records
+// of dst, the CTA's threads striding over them (the caller synchronises).
+template <bool RIGID, class Id>
+__device__ __forceinline__ void stage_blocks(float* dst, const float* __restrict__ packed, int nb, Id id) {
+  if constexpr (RIGID) {
+    for (int k = threadIdx.x; k < nb * kSpheres; k += blockDim.x) {
+      const float* s = packed + (static_cast<size_t>(id(k / kSpheres)) * kSpheres + k % kSpheres) * kFRigid;
+      const float cx = s[0], cy = s[1], cz = s[2], r2 = s[3];
+      float* out = dst + kFRigid * k;
+      out[0] = cx;
+      out[1] = cy;
+      out[2] = cz;
+      out[3] = cx * cx + cy * cy + cz * cz - r2;
+    }
+  } else {
+    constexpr int per = kSpheres * kFGeneral;
+    for (int k = threadIdx.x; k < nb * per; k += blockDim.x) {
+      dst[k] = packed[static_cast<size_t>(id(k / per)) * per + k % per];
+    }
+  }
+}
+
+// quadratic<RIGID> on a staged record, leaving before the roots (an IEEE
+// square root and one or two divisions) where discr >= 0 fails: the hit is
+// valid only where it holds (a NaN discr fails it too) and t is not read
+// otherwise, so the answer is quadratic's, bit for bit. A warp whose rays
+// all miss a sphere, as most do most spheres, skips the roots.
+template <bool RIGID>
+__device__ __forceinline__ bool quadratic_staged(const float* s, const Ray& r, float& t) {
+  if constexpr (RIGID) {
+    float b, cq, discr;
+    rigid_terms(s[0], s[1], s[2], s[3], r, b, cq, discr);
+    if (!(discr >= 0.0f)) return false;
+    return rigid_roots(b, cq, discr, t);
+  } else {
+    float a, b, cq, discr, t_loc;
+    general_terms(s, r, a, b, cq, discr);
+    if (!(discr >= 0.0f)) return false;
+    const bool roots = general_roots(a, b, cq, discr, t_loc);
+    t = t_loc * s[13];
+    return roots && t >= 0.0f;
+  }
+}
+
+// nearest_in_block over one block staged by stage_blocks, for each of a
+// thread's R rays (a thread without a ray keeps the zero ray and a t_best
+// of 0, which no hit beats)
+template <bool RIGID, int R>
+__device__ __forceinline__ void nearest_in_staged(const float* sph, int32_t base, const Ray (&r)[R],
+                                                  float (&t_best)[R], int32_t (&best)[R]) {
+  constexpr int F = RIGID ? kFRigid : kFGeneral;
+  for (int i = 0; i < kSpheres; ++i) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float t;
+      if (quadratic_staged<RIGID>(&sph[F * i], r[k], t) && t < t_best[k]) {
+        t_best[k] = t;
+        best[k] = base + i;
+      }
     }
   }
 }

@@ -68,13 +68,14 @@ V2_TILE = 512  # rays per K8 tile (kajo_tpu's V2_RAY_TILE)
 V2_SUPER = 1024  # spheres per K8 superblock: 8 blocks (kajo_tpu's V2_SUPER)
 V3_TILE = 512  # rays per K9 tile (kajo_tpu's V3_RAY_TILE)
 V3_RESIDENT_BYTES = 6 * 2**20  # kajo_tpu's cap on the packed scene for V3
-V3_MAX_BLOCKS = 32768  # K9's mask: one byte per block in shared memory
 
 nearest_launches = 0
 occluded_launches = 0
 nearest_v1_launches = 0
 nearest_v2_launches = 0
 nearest_v3_launches = 0
+# (ray, block) pairs the designs' plain scans test, while counting_scans() is on
+_scan_counts = None
 
 
 # ------------------------------------------------------ sphere quadratics
@@ -97,15 +98,31 @@ def columns(x):
     return tuple(x[:, i : i + 1] for i in range(x.shape[1]))
 
 
+def rigid_const(cx, cy, cz, r2):
+    """The rigid quadratic's ray-independent term cx²+cy²+cz²-r²."""
+    return cx * cx + cy * cy + cz * cz - r2
+
+
+def rigid_terms(cx, cy, cz, k, o, d, d_dot_o, o2):
+    """The rigid quadratic's (b, constant term, discriminant); ``k`` is
+    :func:`rigid_const` of the sphere."""
+    d_dot_c = d[0] * cx + d[1] * cy + d[2] * cz
+    o_dot_c = o[0] * cx + o[1] * cy + o[2] * cz
+    b = 2.0 * (d_dot_o - d_dot_c)
+    cq = o2 - 2.0 * o_dot_c + k
+    discr = b * b - 4.0 * cq
+    return b, cq, discr
+
+
 def quadratic_rigid(cx, cy, cz, r2, o, d, d_dot_o, o2):
     """World-space stable quadratic with a == 1 (|d| == 1) -> (t, valid).
     ``o``/``d`` are per-axis component triples; sums run left to right, as
     in the CUDA kernel."""
-    d_dot_c = d[0] * cx + d[1] * cy + d[2] * cz
-    o_dot_c = o[0] * cx + o[1] * cy + o[2] * cz
-    b = 2.0 * (d_dot_o - d_dot_c)
-    cq = o2 - 2.0 * o_dot_c + (cx * cx + cy * cy + cz * cz - r2)
-    discr = b * b - 4.0 * cq
+    return rigid_roots(*rigid_terms(cx, cy, cz, rigid_const(cx, cy, cz, r2), o, d, d_dot_o, o2))
+
+
+def rigid_roots(b, cq, discr):
+    """The rigid quadratic's (t, valid) from its terms."""
     sq = _safe_sqrt(discr)
     q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
     t1 = cq / torch.where(q == 0, 1.0, q)
@@ -125,16 +142,25 @@ def object_ray(rec, o, d):
     return o_loc, d_loc
 
 
+def general_terms(rec, o, d):
+    """The general quadratic's (a, b, constant term, discriminant)."""
+    (ox, oy, oz), (dx, dy, dz) = object_ray(rec, o, d)
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (dx * ox + dy * oy + dz * oz)
+    cq = ox * ox + oy * oy + oz * oz - rec[12]
+    discr = b * b - 4.0 * a * cq
+    return a, b, cq, discr
+
+
 def quadratic_general(rec, o, d):
     """Object-space stable quadratic with det-scaled t -> (t, valid, t_loc).
     ``rec``: the 14 fields of a general record (inv3, invt, r2, det);
     ``o``/``d``: per-axis component triples."""
-    (ox, oy, oz), (dx, dy, dz) = object_ray(rec, o, d)
-    r2, det = rec[12], rec[13]
-    a = dx * dx + dy * dy + dz * dz
-    b = 2.0 * (dx * ox + dy * oy + dz * oz)
-    cq = ox * ox + oy * oy + oz * oz - r2
-    discr = b * b - 4.0 * a * cq
+    return general_roots(*general_terms(rec, o, d), rec[13])
+
+
+def general_roots(a, b, cq, discr, det):
+    """The general quadratic's (t, valid, t_loc) from its terms and det."""
     sq = _safe_sqrt(discr)
     q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
     t0 = q / torch.where(a == 0, 1.0, a)
@@ -512,10 +538,29 @@ def _vote(o, d, t_best, gate, tile: int, active=None):
     return _by_tile(may, tile, False).any(1)
 
 
+@contextlib.contextmanager
+def counting_scans():
+    """Count what the designs' plain versions scan inside the block -> a
+    dict: "pairs", the (ray, 128-sphere block) pairs tested; "roots", the
+    (ray, sphere) pairs among them whose discriminant is >= 0, the only ones
+    whose roots the answer needs (a 0-d tensor); and "blocks", the set of
+    blocks some ray tested (what K7-K9's functions must do, for their
+    bounds)."""
+    global _scan_counts
+    before, _scan_counts = _scan_counts, {"pairs": 0, "roots": torch.zeros((), dtype=torch.int64), "blocks": set()}
+    try:
+        yield _scan_counts
+    finally:
+        _scan_counts = before
+
+
 def _scan(rigid, o, d, rays, blk, packed, t_best, idx):
     """Rays ``rays`` (indices) scan the 128-sphere block ``blk`` (an int, or
     a block per ray of ``rays``) in order with a strict t < t_best (the
     first packed row wins a tie); updates t_best and idx in place."""
+    if _scan_counts is not None and rays.shape[0]:
+        _scan_counts["pairs"] += int(rays.shape[0])
+        _scan_counts["blocks"].update([blk] if isinstance(blk, int) else torch.unique(blk).tolist())
     fields = packed.shape[1]
     blocks = packed.view(-1, BLOCK, fields)
     step = max(1, _PLAIN_CHUNK_ELEMS // (BLOCK * fields))
@@ -528,9 +573,13 @@ def _scan(rigid, o, d, rays, blk, packed, t_best, idx):
             b = blk[r0 : r0 + step]
             rec, base = blocks[b].permute(2, 0, 1), b * BLOCK  # [F, m, 128]
         if rigid:
-            t, valid = quadratic_rigid(rec[0], rec[1], rec[2], rec[3], ocol, dcol, d_dot_o, o2)
+            terms = rigid_terms(rec[0], rec[1], rec[2], rigid_const(*rec), ocol, dcol, d_dot_o, o2)
+            t, valid = rigid_roots(*terms)
         else:
-            t, valid, _ = quadratic_general(rec, ocol, dcol)
+            terms = general_terms(rec, ocol, dcol)
+            t, valid, _ = general_roots(*terms, rec[13])
+        if _scan_counts is not None:
+            _scan_counts["roots"] = _scan_counts["roots"].to(t.device) + (terms[-1] >= 0).sum()
         t_min, arg = torch.min(torch.where(valid, t, float("inf")), 1)
         tb = t_best[r]
         better = t_min < tb
@@ -738,14 +787,20 @@ def launch_nearest_v2(rigid: bool, o, d, bound, packed, boxes, cand=None):
 
 def launch_nearest_v3(rigid: bool, o, d, bound, packed, boxes):
     """Launch K9 on the current stream -> (t [N], packed idx [N] int32),
-    the function of :func:`nearest_v3_plain`."""
+    the function of :func:`nearest_v3_plain`: its marks, a CTA per tile
+    and range of marked blocks, and each ray's answer taken from a 64-bit
+    key that the ranges lower (three launches, one counted). Scratch,
+    allocated here: 4 bytes a tile and block (the tiles' lists of marked
+    blocks, 300 KB for 49,152 rays on 782 blocks) and 8 bytes a ray."""
     global nearest_v3_launches
     n, n_blocks = _check_trace(rigid, o, d, bound, packed, boxes)
-    if n_blocks > V3_MAX_BLOCKS:
-        raise ValueError(f"K9 keeps a byte per block in shared memory: at most {V3_MAX_BLOCKS} blocks, got {n_blocks}")
+    n_tiles = -(-n // V3_TILE)
+    lists = torch.empty((n_tiles, n_blocks), dtype=torch.int32, device=o.device)
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=o.device)
+    keys = torch.empty((n,), dtype=torch.int64, device=o.device)
     t_out, idx_out = _outputs(o)
-    _run("stream_trace_v3.cu", "kajo_stream_nearest_v3", o, o, d, bound, packed, boxes, t_out, idx_out, n, n_blocks,
-         int(rigid))
+    _run("stream_trace_v3.cu", "kajo_stream_nearest_v3", o, o, d, bound, packed, boxes, lists, counts, keys, t_out,
+         idx_out, n, n_blocks, int(rigid))
     nearest_v3_launches += 1
     return t_out, idx_out
 

@@ -14,7 +14,9 @@ JAX's caches are cleared before each, and the kernel-building functions
 each one reached are recorded, so a test can see that the flags took. Also
 written:
 ``_frustum_candidates`` of the same rays at the V1 tile (4096 rays) and at
-128-ray tiles.
+128-ray tiles; and V2 and V3 on one more call, ``stream_far_rays.far_rays``:
+one 512-ray tile (V2's and V3's tile) of rays from 1e5-1e6 units out, where
+the tile's vote, not each ray's box test, decides which blocks a ray scans.
 """
 
 import sys
@@ -27,6 +29,7 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 from _jax_stream_ref import EXTENT, N_SPHERES, SCENE_SEED, rays  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+from stream_far_rays import far_rays  # noqa: E402
 
 from kajo_tpu.ops import geometry  # noqa: E402
 from kajo_tpu.ops.pallas import stream_trace as st  # noqa: E402
@@ -41,6 +44,7 @@ DESIGNS = {  # the port's design name -> kajo_tpu's flags
     "v3": dict(KERNEL_V4=False, KERNEL_V3=True),
 }
 CASE_DESIGNS = {"rigid": tuple(DESIGNS), "jitter": ("v1", "v2", "v3")}
+FAR_DESIGNS = ("v2", "v3")
 KERNEL_FNS = ("_build_kernel", "_build_kernel_v2", "_build_kernel_v3", "_build_kernel_v4", "_frustum_candidates")
 
 
@@ -54,6 +58,7 @@ def main(out, case):
     rng = np.random.default_rng(11)  # the bounds of tests/_jax_stream_ref.py
     t_max = np.where(rng.uniform(size=n) < 0.5, np.inf, rng.uniform(2.0, 40.0, n)).astype(np.float32)
 
+    far = far_rays(EXTENT)
     reached = []
     for name in KERNEL_FNS:
         fn = getattr(st, name)
@@ -70,6 +75,10 @@ def main(out, case):
             res[f"t/{design}"] = np.asarray(t)
             res[f"idx/{design}"] = np.asarray(idx)
             res[f"reached/{design}"] = np.array(sorted(set(reached)))
+            if design in FAR_DESIGNS:
+                t, idx = st.nearest_sphere(prep, *(jnp.asarray(x) for x in far))
+                res[f"far_t/{design}"] = np.asarray(t)
+                res[f"far_idx/{design}"] = np.asarray(idx)
         # the frustum lists of the same rays, padded as nearest_sphere pads them
         tile = st.RAY_ROWS * 128
         n_pad = -(-n // tile) * tile
@@ -82,8 +91,8 @@ def main(out, case):
                 st._frustum_candidates(o_p, d_p, tm, b2, n_pad // rays_per_tile, rays_per_tile)
             )
     np.savez(
-        out, o=o, d=d, t_max=t_max, packed=np.asarray(prep.stream_packed), boxes=np.asarray(b2),
-        perm=np.asarray(prep.stream_perm), **res,
+        out, o=o, d=d, t_max=t_max, far_o=far[0], far_d=far[1], far_t_max=far[2],
+        packed=np.asarray(prep.stream_packed), boxes=np.asarray(b2), perm=np.asarray(prep.stream_perm), **res,
     )
 
 

@@ -21,6 +21,7 @@ from kajo_tpu_torch.ops import geometry, megakernel, stream_trace
 from kajo_tpu_torch.scene import parser
 from kajo_tpu_torch.scene.procedural import random_spheres_scene
 from kajo_tpu_torch.scene.testscene import build_two_light_scene
+from stream_far_rays import far_rays
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
@@ -230,15 +231,10 @@ def test_plans_mirror_the_kernels_constants(device, source):
     assert megakernel.built_plan_constants(source) == want
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
-@pytest.mark.parametrize("design", ["v1", "v1-frustum", "v1-near-far", "v2", "v3"])
-def test_design_kernels_match_plain(device, design, jitter):
-    """K7 (three block orders), K8 and K9 against their plain versions on
-    the 1500-sphere scene of the CPU tests: the same winner on every ray and
-    t equal to the bit, one launch each, and K5's winners on these rays."""
-    prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device=device))
-    assert prep.stream_packed is not None
-    o, d, bound = _stream_rays(prep, n_side=48)
+def _hold_design(design, prep, o, d, bound):
+    """One launch of the design's kernel against its plain version on these
+    rays: the same winner on every ray and t equal to the bit, one launch
+    counted -> (t, idx) of the kernel."""
     boxes = prep.stream_boxes
     kind = design[:2]
     lists = {"v1": (None,), "v1-frustum": (stream_trace.frustum_candidates(o, d, bound, boxes),),
@@ -249,13 +245,46 @@ def test_design_kernels_match_plain(device, design, jitter):
     before = getattr(stream_trace, counter)
     t_k, i_k = getattr(stream_trace, f"launch_nearest_{kind}")(*args)
     t_p, i_p = getattr(stream_trace, f"nearest_{kind}_plain")(*args)
-    t_5, i_5 = stream_trace.launch_nearest(*args[:6])
     torch.cuda.synchronize()
     assert getattr(stream_trace, counter) == before + 1
-    assert int((i_p >= 0).sum()) > 500
     assert torch.equal(i_k, i_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    return t_k, i_k
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
+@pytest.mark.parametrize("design", ["v1", "v1-frustum", "v1-near-far", "v2", "v3"])
+def test_design_kernels_match_plain(device, design, jitter):
+    """K7 (three block orders), K8 and K9 against their plain versions on
+    the 1500-sphere scene of the CPU tests: the same winner on every ray and
+    t equal to the bit, one launch each, and K5's winners on these rays.
+    K8 and K9 also on a call of in-field rays, the far tile of the CPU tests
+    (whose tile vote gives some ray a winner unlike K5's), a tile of rays
+    with d = 0 (no live ray: nothing found) and a partial last tile, and on
+    a call of fewer rays than one tile."""
+    prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device=device))
+    assert prep.stream_packed is not None
+    o, d, bound = _stream_rays(prep, n_side=48)
+    _, i_k = _hold_design(design, prep, o, d, bound)
+    t_5, i_5 = stream_trace.launch_nearest(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    assert int((i_k >= 0).sum()) > 500
     assert torch.equal(i_k, i_5)
+    if design not in ("v2", "v3"):
+        return
+    far = [torch.tensor(x, device=device) for x in far_rays()]
+    far[2] = torch.clamp_max(far[2], stream_trace.BIG)
+    tile = stream_trace.V2_TILE
+    # in-field rays | the far tile | a tile with d = 0 | 300 in-field rays
+    cut = [slice(0, 2 * tile), slice(None), slice(0, tile), slice(2 * tile, 2 * tile + 300)]
+    mixed = [torch.cat([x[cut[0]], f, x[cut[2]], x[cut[3]]]).contiguous() for x, f in zip((o, d, bound), far)]
+    mixed[1][3 * tile : 4 * tile] = 0.0
+    t_k, i_k = _hold_design(design, prep, *mixed)
+    t_5, i_5 = stream_trace.launch_nearest(prep.rigid, *mixed, prep.stream_packed, prep.stream_boxes)
+    assert (i_k[2 * tile : 3 * tile] != i_5[2 * tile : 3 * tile]).any()
+    assert (i_k[3 * tile : 4 * tile] == -1).all()
+    assert torch.equal(t_k[3 * tile : 4 * tile], mixed[2][3 * tile : 4 * tile])
+    assert torch.equal(i_k[4 * tile :], i_5[4 * tile :]) and torch.equal(i_k[: 2 * tile], i_5[: 2 * tile])
+    _hold_design(design, prep, *(x[2 * tile : 2 * tile + 300].contiguous() for x in mixed))
 
 
 def test_streamed_pass_launches_the_stream_kernels(device, monkeypatch):

@@ -14,6 +14,10 @@ with the port's own is ``test_torch_stream_trace.py``'s).
     at the port's tiles and, for V1's orders, at kajo_tpu's 4096-ray tile;
     and K5's answer (the port's ``nearest_sphere_plain``), as these rays lie
     in the field;
+  * V2 and V3 on one 512-ray tile from 1e5-1e6 units out
+    (``stream_far_rays.far_rays``), where the tile vote decides the
+    answer: kajo_tpu's winner and t to the bit, and on some ray a winner
+    unlike K5's, so a design that dropped the vote fails;
   * ``frustum_candidates`` equals kajo_tpu's ``_frustum_candidates`` as
     integers (kajo_tpu's tail repeats of the last candidate aside);
   * the det-scaled adversarial scene of ``test_bigscene.py``: the far,
@@ -101,6 +105,19 @@ def test_design_plain_matches_kajo(case, design, reference):
         found = idx >= 0
         idx = torch.where(found, prep.stream_perm[idx.clamp_min(0).long()], -1)
         _bits_equal((torch.where(found, t, float("inf")), idx), ref[f"t/{design}"], ref[f"idx/{design}"])
+
+
+@pytest.mark.parametrize("design", ["v2", "v3"])
+@pytest.mark.parametrize("case", list(CASE_DESIGNS))
+def test_far_tile_vote_matches_kajo(case, design, reference):
+    ref = reference[case]
+    prep, *_ = _inputs(case, ref)
+    o, d, t_max = (torch.tensor(ref[f"far_{k}"]) for k in ("o", "d", "t_max"))
+    assert o.shape[0] == st.V2_TILE == st.V3_TILE and o.norm(dim=1).min() > 9e4
+    got = st.nearest_sphere(prep, o, d, t_max, design=design)
+    _bits_equal(got, ref[f"far_t/{design}"], ref[f"far_idx/{design}"])
+    k5 = st.nearest_sphere(prep, o, d, t_max, design="v4")
+    assert (got[1] >= 0).any() and (got[1] != k5[1]).any()
 
 
 @pytest.mark.parametrize("tile", [KAJO_V1_TILE, st.V1_TILE])
@@ -250,6 +267,33 @@ def test_streamed_pass_under_design(design, jitter, k5_passes, monkeypatch):
     print(f"{design} jitter={jitter}: tone-mapped MAD {mad:.3e}, mean relative gap {rel:.3e} against K5")  # pytest -rP
     assert mad <= 5e-4, mad
     assert rel <= 0.01, rel
+
+
+def test_counting_scans_counts_v3_marks():
+    """``counting_scans`` counts what K9's function scans: per tile, its
+    marked blocks (``frustum_reach``) times its rays in the call, and the
+    (ray, sphere) pairs of those blocks with a discriminant >= 0; nothing
+    when off, and the setting is restored."""
+    prep = _small_streamed()
+    rng = np.random.default_rng(6)
+    n = 2 * st.V3_TILE + 100
+    o = torch.tensor(rng.uniform(-10, 10, (n, 3)).astype(np.float32))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True))
+    bound = torch.tensor(rng.uniform(0.5, 4.0, n).astype(np.float32))
+    marks = st.frustum_reach(*st._tile_bounds(o, d, bound, st.V3_TILE)[:5], prep.stream_boxes)
+    rays = torch.tensor([st.V3_TILE, st.V3_TILE, 100])
+    with st.counting_scans() as counts:
+        want = st.nearest_v3_plain(True, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    assert counts["pairs"] == int((marks.sum(1) * rays).sum()) > 0
+    assert counts["blocks"] == set(torch.nonzero(marks.any(0)).squeeze(1).tolist())
+    packed = prep.stream_packed
+    discr = st.rigid_terms(*packed.T[:3], st.rigid_const(*packed.T), *st.ray_terms(o, d))[2]
+    scanned = marks[torch.arange(n) // st.V3_TILE][:, torch.arange(packed.shape[0]) // st.BLOCK]
+    assert int(counts["roots"]) == int((scanned & (discr >= 0)).sum()) > 0
+    assert st._scan_counts is None
+    got = st.nearest_v3_plain(True, o, d, bound, prep.stream_packed, prep.stream_boxes)
+    assert torch.equal(got[1], want[1]) and counts["pairs"] == int((marks.sum(1) * rays).sum())
 
 
 def test_lists_on_a_partial_tile():
