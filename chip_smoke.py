@@ -111,8 +111,10 @@ with a non-zero exit when it fails:
    each design's kernel per call with CUDA events (20 launches) on the
    recorded rigid calls of phase 14, beside K5 on the same call, its host-
    side lists (5 runs) and its plain version (1 run, phase 14), with its own
-   bound (the pairs of phase 14) and K5's on the same call; and a pass and
-   8 passes in a batch under each design.
+   bound (the pairs of phase 14) and K5's on the same call, and for K7 and
+   K8 what each tile's vote admitted in phase 14 (mean, most, and the tiles
+   above 4x the mean: the tail that one CTA or cluster walks alone); and a
+   pass and 8 passes in a batch under each design.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -1348,6 +1350,11 @@ def design_phases(dev, card: str, scenes: dict) -> list:
             if has_lists:  # the recorded call's lists: (..., lists, counts)
                 lists, counts = args[6][-2:]
                 kept = f" (the lists keep {counts.float().mean().item():.1f} of {lists.shape[1]} per tile on average)"
+            tiles = row["scans"]["tiles"].float()  # what each tile's vote admitted (K7, K8), from the plain scan
+            if tiles.dim():
+                mean = tiles.mean().item()
+                kept += (f"; the votes admit {mean:.1f} a tile on average, at most {tiles.max().item():.0f}, "
+                         f"{int((tiles > 4 * mean).sum())} of {tiles.numel()} tiles above 4x the mean")
             print(f"timing {design} call {i} ({args[1].shape[0]} rays) on {card}: kernel {k_ms:.4f} ms, host lists "
                   f"{l_ms:.4f} ms{kept}, plain {row['plain_ms']:.0f} ms, K5 {k5_ms:.4f} ms; own bound {b_ms:.6f} ms "
                   f"({by}: {row['scans']['pairs']} (ray, block) pairs, {int(row['scans']['roots'])} with roots, "

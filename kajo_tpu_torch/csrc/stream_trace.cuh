@@ -2,10 +2,11 @@
 // (stream_trace.cu) and the nearest-hit designs K7 (stream_trace_v1.cu), K8
 // (stream_trace_v2.cu) and K9 (stream_trace_v3.cu): the ray record, the
 // rigid and general sphere quadratics, the slab test of a block's box, and,
-// for K7-K9, the staging of a block's records in shared memory and the
-// strict nearest-hit scan of a staged block (K8 and K9 stage rigid records
-// with their ray-independent term and scan with an early exit; see
-// stage_blocks).
+// for K7-K9, the staging of a block's records in shared memory (rigid
+// records with their ray-independent term, see stage_blocks) and the strict
+// nearest-hit scan of a staged block, which leaves a sphere before its
+// roots where discr < 0 (quadratic_staged; K7 in two passes,
+// nearest_in_rows).
 //
 // One copy on purpose, as kajo_tpu/ops/pallas/stream_trace.py keeps one
 // _quadratic_rigid (:74), one _quadratic_general (:91) and one _slab_test
@@ -169,29 +170,7 @@ __device__ __forceinline__ bool box_may_hit(const Ray& r, float ix, float iy, fl
   return t_exit >= t_enter && t_enter * box[6] < t_best;
 }
 
-// copy n floats from device memory into shared memory, the CTA's threads
-// striding over them (the caller synchronises before reading)
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
-}
-
-// Scan the staged records of one block in order: a valid hit with
-// t < t_best (strict, so the first row wins a tie) becomes t_best, and its
-// packed row base + i the winner.
-template <bool RIGID>
-__device__ __forceinline__ void nearest_in_block(const float* sph, int32_t base, const Ray& r, float& t_best,
-                                                 int32_t& best) {
-  constexpr int F = RIGID ? kFRigid : kFGeneral;
-  for (int i = 0; i < kSpheres; ++i) {
-    float t;
-    if (quadratic<RIGID>(&sph[F * i], r, t) && t < t_best) {
-      t_best = t;
-      best = base + i;
-    }
-  }
-}
-
-// K8 and K9 stage a rigid record as (cx, cy, cz, k), k = cx*cx + cy*cy +
+// K7-K9 stage a rigid record as (cx, cy, cz, k), k = cx*cx + cy*cy +
 // cz*cz - r2: the ray-independent term quadratic_rigid adds as one
 // parenthesised term, computed once a sphere with the same operations, so
 // the same bits. A general record is staged as it is. Stage nb blocks,
@@ -239,9 +218,11 @@ __device__ __forceinline__ bool quadratic_staged(const float* s, const Ray& r, f
   }
 }
 
-// nearest_in_block over one block staged by stage_blocks, for each of a
-// thread's R rays (a thread without a ray keeps the zero ray and a t_best
-// of 0, which no hit beats)
+// The strict in-order scan of one block staged by stage_blocks: a valid hit
+// with t < t_best (strict, so the first row wins a tie) becomes t_best, and
+// its packed row base + i the winner; for each of a thread's R rays (a
+// thread without a ray keeps the zero ray and a t_best of 0, which no hit
+// beats)
 template <bool RIGID, int R>
 __device__ __forceinline__ void nearest_in_staged(const float* sph, int32_t base, const Ray (&r)[R],
                                                   float (&t_best)[R], int32_t (&best)[R]) {
@@ -254,6 +235,49 @@ __device__ __forceinline__ void nearest_in_staged(const float* sph, int32_t base
         t_best[k] = t;
         best[k] = base + i;
       }
+    }
+  }
+}
+
+// The discriminant of quadratic_staged's quadratic on a staged record (the
+// same operations, so the same bits)
+template <bool RIGID>
+__device__ __forceinline__ float staged_discr(const float* s, const Ray& r) {
+  float a, b, cq, discr;
+  if constexpr (RIGID) {
+    rigid_terms(s[0], s[1], s[2], s[3], r, b, cq, discr);
+  } else {
+    general_terms(s, r, a, b, cq, discr);
+  }
+  return discr;
+}
+
+// nearest_in_staged's scan of one ray over rows first, first + STRIDE, ...
+// of one block, in two passes: every row's discriminant, a bit a row
+// where discr >= 0 holds (no branch, so the loads and arithmetic of many
+// rows overlap), then quadratic_staged on those rows alone, in row order,
+// with the strict rule. A row where discr >= 0 fails is never a valid hit,
+// so the answer is the in-order scan's, bit for bit; and a warp takes a
+// row's roots as often as its busiest lane has such a row, not at every
+// row where some lane of the warp has one.
+template <bool RIGID, int STRIDE>
+__device__ __forceinline__ void nearest_in_rows(const float* sph, int32_t base, int first, const Ray& r,
+                                                float& t_best, int32_t& best) {
+  constexpr int F = RIGID ? kFRigid : kFGeneral;
+  constexpr int N = kSpheres / STRIDE;  // rows a lane scans
+  static_assert(kSpheres % STRIDE == 0 && N <= 32, "a lane's rows fit one 32-bit mask");
+  unsigned rows = 0u;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (staged_discr<RIGID>(&sph[F * (first + k * STRIDE)], r) >= 0.0f) rows |= 1u << k;
+  }
+  while (rows) {
+    const int i = first + (__ffs(rows) - 1) * STRIDE;
+    rows &= rows - 1u;
+    float t;
+    if (quadratic_staged<RIGID>(&sph[F * i], r, t) && t < t_best) {
+      t_best = t;
+      best = base + i;
     }
   }
 }

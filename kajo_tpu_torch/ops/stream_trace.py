@@ -535,7 +535,10 @@ def _vote(o, d, t_best, gate, tile: int, active=None):
     may = entered & (t_enter * gate[:, 6] < t_best)
     if active is not None:
         may &= active
-    return _by_tile(may, tile, False).any(1)
+    verdict = _by_tile(may, tile, False).any(1)
+    if _scan_counts is not None:
+        _scan_counts["tiles"] = _scan_counts["tiles"].to(verdict.device) + verdict
+    return verdict
 
 
 @contextlib.contextmanager
@@ -543,11 +546,13 @@ def counting_scans():
     """Count what the designs' plain versions scan inside the block -> a
     dict: "pairs", the (ray, 128-sphere block) pairs tested; "roots", the
     (ray, sphere) pairs among them whose discriminant is >= 0, the only ones
-    whose roots the answer needs (a 0-d tensor); and "blocks", the set of
+    whose roots the answer needs (a 0-d tensor); "blocks", the set of
     blocks some ray tested (what K7-K9's functions must do, for their
-    bounds)."""
+    bounds); and "tiles", per tile the blocks (K7) or superblocks (K8) its
+    vote admitted ([T] int64; a 0-d zero until a vote is taken)."""
     global _scan_counts
-    before, _scan_counts = _scan_counts, {"pairs": 0, "roots": torch.zeros((), dtype=torch.int64), "blocks": set()}
+    zero = torch.zeros((), dtype=torch.int64)
+    before, _scan_counts = _scan_counts, {"pairs": 0, "roots": zero, "blocks": set(), "tiles": zero}
     try:
         yield _scan_counts
     finally:

@@ -258,8 +258,9 @@ def test_design_kernels_match_plain(device, design, jitter):
     """K7 (three block orders), K8 and K9 against their plain versions on
     the 1500-sphere scene of the CPU tests: the same winner on every ray and
     t equal to the bit, one launch each, and K5's winners on these rays.
-    K8 and K9 also on a call of in-field rays, the far tile of the CPU tests
-    (whose tile vote gives some ray a winner unlike K5's), a tile of rays
+    Then, in tiles of the design's own size (V1_TILE for K7, 512 rays for
+    K8 and K9), on a call of in-field rays, the far rays of the CPU tests
+    (whose tile votes give some ray a winner unlike K5's), a tile of rays
     with d = 0 (no live ray: nothing found) and a partial last tile, and on
     a call of fewer rays than one tile."""
     prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device=device))
@@ -269,22 +270,56 @@ def test_design_kernels_match_plain(device, design, jitter):
     t_5, i_5 = stream_trace.launch_nearest(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
     assert int((i_k >= 0).sum()) > 500
     assert torch.equal(i_k, i_5)
-    if design not in ("v2", "v3"):
-        return
     far = [torch.tensor(x, device=device) for x in far_rays()]
     far[2] = torch.clamp_max(far[2], stream_trace.BIG)
-    tile = stream_trace.V2_TILE
-    # in-field rays | the far tile | a tile with d = 0 | 300 in-field rays
+    tile = {"v1": stream_trace.V1_TILE, "v2": stream_trace.V2_TILE, "v3": stream_trace.V3_TILE}[design[:2]]
+    n_far = far[0].shape[0]
+    assert n_far % tile == 0
+    # in-field rays | the far rays | a tile with d = 0 | 300 in-field rays, the last tile partial
     cut = [slice(0, 2 * tile), slice(None), slice(0, tile), slice(2 * tile, 2 * tile + 300)]
     mixed = [torch.cat([x[cut[0]], f, x[cut[2]], x[cut[3]]]).contiguous() for x, f in zip((o, d, bound), far)]
-    mixed[1][3 * tile : 4 * tile] = 0.0
+    zero = slice(2 * tile + n_far, 3 * tile + n_far)
+    mixed[1][zero] = 0.0
     t_k, i_k = _hold_design(design, prep, *mixed)
     t_5, i_5 = stream_trace.launch_nearest(prep.rigid, *mixed, prep.stream_packed, prep.stream_boxes)
-    assert (i_k[2 * tile : 3 * tile] != i_5[2 * tile : 3 * tile]).any()
-    assert (i_k[3 * tile : 4 * tile] == -1).all()
-    assert torch.equal(t_k[3 * tile : 4 * tile], mixed[2][3 * tile : 4 * tile])
-    assert torch.equal(i_k[4 * tile :], i_5[4 * tile :]) and torch.equal(i_k[: 2 * tile], i_5[: 2 * tile])
-    _hold_design(design, prep, *(x[2 * tile : 2 * tile + 300].contiguous() for x in mixed))
+    far_rows = slice(2 * tile, 2 * tile + n_far)
+    assert (i_k[far_rows] != i_5[far_rows]).any()
+    assert (i_k[zero] == -1).all()
+    assert torch.equal(t_k[zero], mixed[2][zero])
+    assert torch.equal(i_k[zero.stop :], i_5[zero.stop :]) and torch.equal(i_k[: 2 * tile], i_5[: 2 * tile])
+    short = 300 if tile > 300 else tile - 28
+    _hold_design(design, prep, *(x[2 * tile : 2 * tile + short].contiguous() for x in mixed))
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
+def test_v1_kernel_when_every_block_is_admitted(device, jitter):
+    """K7 against its plain version where every tile's vote admits every
+    block (each ray starts at the centre of a block's box, so it enters
+    the box at t = 0, below any positive bound; 38 blocks, 3 tiles and a
+    partial one) in packed order, and on lists in a shuffled order whose
+    lengths (37, 33, 5, 37) are no multiple of a lane or chunk count."""
+    prep = geometry.prepare_scene(random_spheres_scene(4741, seed=4, extent=20.0, scale_jitter=jitter, device=device))
+    boxes = prep.stream_boxes
+    n_blocks, n = boxes.shape[0], 3 * stream_trace.V1_TILE + 50
+    assert n_blocks == 38 and prep.rigid == (jitter == 0.0)
+    centre = 0.5 * (boxes[:, 0:3] + boxes[:, 3:6])
+    o = centre[torch.arange(n, device=device) % n_blocks].contiguous()
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True), device=device)
+    bound = torch.full((n,), stream_trace.BIG, device=device)
+    args = (prep.rigid, o, d, bound, prep.stream_packed, boxes)
+    with stream_trace.counting_scans() as scans:
+        stream_trace.nearest_v1_plain(*args)
+    assert scans["tiles"].tolist() == [n_blocks] * 4
+    _, i_k = _hold_design("v1", prep, o, d, bound)
+    assert int((i_k >= 0).sum()) > n // 2
+    lists = torch.stack([torch.tensor(rng.permutation(n_blocks), dtype=torch.int32) for _ in range(4)]).to(device)
+    counts = torch.tensor([37, 33, 5, 37], dtype=torch.int32, device=device)
+    t_k, i_k = stream_trace.launch_nearest_v1(*args, (lists, counts))
+    t_p, i_p = stream_trace.nearest_v1_plain(*args, (lists, counts))
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
 
 
 def test_streamed_pass_launches_the_stream_kernels(device, monkeypatch):

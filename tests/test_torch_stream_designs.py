@@ -24,7 +24,10 @@ with the port's own is ``test_torch_stream_trace.py``'s).
     small-det cluster wins under every design, as in the dense trace;
   * dispatch: the setting, its context manager and ``design=``; V3 over the
     residency cap runs V1; an unknown name raises; a streamed wavefront pass
-    under each design stays within the bars of the K5 pass.
+    under each design stays within the bars of the K5 pass;
+  * V1's vote is monotone (what K7's batched votes rest on): a block that a
+    tile's vote refuses at the rays' starting bounds is never scanned, so
+    lists cut to the blocks admitted there give the same bits.
 """
 
 import os
@@ -44,6 +47,7 @@ from kajo_tpu_torch.ops import stream_trace as st
 from kajo_tpu_torch.scene.procedural import random_spheres_scene
 from kajo_tpu_torch.scene.types import make_scene
 from kajo_tpu_torch.utils import math3d
+from stream_far_rays import far_rays
 
 CASE_DESIGNS = {"rigid": ("v1", "v1-frustum", "v1-near-far", "v2", "v3"), "jitter": ("v1", "v2", "v3")}
 # the kernel-building function of kajo_tpu each design must reach
@@ -315,3 +319,47 @@ def test_lists_on_a_partial_tile():
     for design in st.DESIGNS[1:]:
         got = st.nearest_sphere(prep, o, d, design=design)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.6], ids=["rigid", "general"])
+def test_v1_votes_refused_at_the_start_stay_refused(jitter):
+    """The vote box_may_hit is t_exit >= t_enter and t_enter * min det <
+    t_best, and t_best only falls, so a block that no ray of a tile admits
+    at the rays' starting bounds is refused at every later t_best too (a
+    NaN compares false both times). On the 1500-sphere field, in-field rays
+    and the far rays of ``stream_far_rays`` (whose answers the vote
+    decides): each tile's list, in all three orders, cut to the blocks its
+    vote admits at the starting bounds gives the bits of the whole list."""
+    prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device="cpu"))
+    # in-field tiles: origins within 1 of a point of the field, in all directions, bounds 1-6 (half unbounded
+    # in the first tile), so that a tile's vote refuses some blocks at the start and admits some only then
+    rng = np.random.default_rng(8)
+    n_in = 3 * st.V1_TILE
+    centre = np.repeat(rng.uniform(-16, 16, (3, 3)), st.V1_TILE, axis=0)
+    centre[:, 1] = 0.0
+    o_in = (centre + rng.uniform(-1, 1, (n_in, 3))).astype(np.float32)
+    d_in = rng.normal(size=(n_in, 3)).astype(np.float32)
+    d_in /= np.linalg.norm(d_in, axis=1, keepdims=True)
+    b_in = rng.uniform(1, 6, n_in).astype(np.float32)
+    b_in[: st.V1_TILE : 2] = np.inf
+    far = far_rays()
+    o = torch.tensor(np.concatenate([o_in, far[0]]))
+    d = torch.tensor(np.concatenate([d_in, far[1]]))
+    bound = torch.clamp_max(torch.tensor(np.concatenate([b_in, far[2]])), st.BIG)
+    boxes, n_blocks = prep.stream_boxes, prep.stream_boxes.shape[0]
+    n_tiles = -(-o.shape[0] // st.V1_TILE)
+    t_enter, entered = st._slab(o, d, boxes)
+    admit = st._by_tile(entered & (t_enter * boxes[:, 6] < bound[:, None]), st.V1_TILE, False).any(1)  # [T, B]
+    args = (prep.rigid, o, d, bound, prep.stream_packed, boxes)
+    for design in ("v1", "v1-frustum", "v1-near-far"):
+        (order,) = st.design_lists(design, o, d, bound, boxes)
+        lists, counts = order if order is not None else (
+            torch.arange(n_blocks, dtype=torch.int32).expand(n_tiles, n_blocks), torch.full((n_tiles,), n_blocks))
+        keep = admit.gather(1, lists.long()) & (torch.arange(n_blocks) < counts[:, None])
+        first = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)  # the kept entries first, in list order
+        cut = (lists.gather(1, first).to(torch.int32).contiguous(), keep.sum(1).to(torch.int32))
+        assert (cut[1] < counts).any() and (cut[1] > 0).all()
+        t_w, i_w = st.nearest_v1_plain(*args, order)
+        t_c, i_c = st.nearest_v1_plain(*args, cut)
+        assert int((i_w >= 0).sum()) > 100
+        assert torch.equal(i_c, i_w) and torch.equal(t_c.view(torch.int32), t_w.view(torch.int32)), design
