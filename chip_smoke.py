@@ -114,7 +114,30 @@ with a non-zero exit when it fails:
    bound (the pairs of phase 14) and K5's on the same call, and for K7 and
    K8 what each tile's vote admitted in phase 14 (mean, most, and the tiles
    above 4x the mean: the tail that one CTA or cluster walks alone); and a
-   pass and 8 passes in a batch under each design.
+   pass and 8 passes in a batch under each design;
+17. the parity engine (models/integrator.py, plain PyTorch on the card,
+   tracing through the dense trace or K5): a pass on the card against the
+   same pass on the CPU, whose counter key gives the same stream (caustics,
+   scaled.json and the two-light scene with one-light NEE at 64x48, 4 spp;
+   phase 3's bars; the share of pixels that differ printed); the C++ golden
+   as in phase 4; the CLI's main() with -r cpu at 512x384, 16 spp, 2
+   passes: engine parity, K1 launched no time, the PNG as in phase 5, and a
+   pass timed with CUDA events; a parity pass of config 5 (rigid), which
+   must launch K5, timed, and its device busy share under torch.profiler;
+18. the boundary terms (diff/edges.py) on engine mega: silhouette_loss_grads
+   (the flat-lit sphere of tests/test_edges.py) and shadow_silhouette_grads
+   (its out-of-frame occluder) at 32x32, n_edge 256 and 4, on the card
+   against the CPU with the same key, under a ramp and a random cotangent:
+   a relative L2 gap <= 1e-3 per output and no entry of another sign;
+   kajo_tpu_torch.silhouette_recovery.main at its own size (64x64, 16 spp,
+   60 steps), counting launches from 0: 2 K1, 2 K3 and 2 K4 a step, and
+   the position error below half its start; the cast-shadow recovery of
+   tests/test_edges.py (25 steps, shadow_edges) on engine mega: the error
+   below its start of 0.3; ms per step and the boundary terms' share of a
+   step, and the device busy share of the terms under torch.profiler; and
+   phase 12's configuration for 10 steps with and without edge_gradients
+   on three seeds, and for 100 steps with it, its losses and offsets
+   printed beside phase 12's (a report: no bar).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -160,8 +183,9 @@ rays and the results; K5's bound on the same call is printed beside it.
 Every line is flushed as it is printed, and a phase that stalls for
 STALL_S seconds dumps the Python stack of every thread and ends the run.
 
-The last two lines are the kernels' JSON record and {"ok": true, "device":
-...}. Without a CUDA device it exits non-zero and prints no result.
+Phases 17 and 18 run no kernel of their own and add nothing to the kernels
+line. The last two lines are the kernels' JSON record and {"ok": true,
+"device": ...}. Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -290,6 +314,13 @@ def profile_device(fn) -> dict:
             busy_us += t - max(s, end)
             end = t
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3, per_name=per_name)
+
+
+def report_profile(label: str, card: str, prof: dict) -> None:
+    """Print a profile_device record: wall, device busy share and launches."""
+    launches = sum(n for _, n in prof["per_name"].values())
+    print(f"profile {label} on {card}: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.2f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), {launches} device launches and copies")
 
 
 def blocks_entered(o, d, t_final, boxes, rays_per_chunk=4096) -> torch.Tensor:
@@ -1408,6 +1439,210 @@ def design_phases(dev, card: str, scenes: dict) -> list:
     return records
 
 
+EDGE_W = EDGE_H = 32  # tests/test_edges.py's size
+EDGE_GRAD_BAR = 1e-3  # phase 18: relative L2 gap of the boundary gradients, card vs CPU
+
+
+def parity_phases(dev, card: str, scenes: dict) -> None:
+    """Phase 17: the parity engine (models/integrator.py), which runs no
+    kernel of its own."""
+    from kajo_tpu_torch import cli
+    from kajo_tpu_torch.models.integrator import RenderConfig, render_image, render_pass
+    from kajo_tpu_torch.ops import megakernel
+    from kajo_tpu_torch.ops import stream_trace as st
+    from kajo_tpu_torch.scene import parser
+    from kajo_tpu_torch.scene.testscene import build_two_light_scene
+
+    caustics = str(ROOT / "data" / "caustics.json")
+    cpu = torch.device("cpu")
+    # 17a. a parity pass on the card against the same pass (the same counter stream) on the CPU
+    cases = [
+        ("caustics", lambda d: parser.load(caustics, 64 / 48, d), RenderConfig()),
+        ("scaled.json", lambda d: parser.load(str(ROOT / "data" / "scaled.json"), 64 / 48, d), RenderConfig()),
+        ("two-light one_light_nee", lambda d: build_two_light_scene(64 / 48, d), RenderConfig(one_light_nee=True)),
+    ]
+    for label, load, config in cases:
+        got = render_pass(load(dev), 2024, 64, 48, 4, config).cpu()
+        want = render_pass(load(cpu), 2024, 64, 48, 4, config)
+        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).amax(-1)
+        print(f"parity {label} 64x48 4spp card vs CPU: share of pixels beyond 1e-5 relative "
+              f"{float((rel > 1e-5).float().mean()):.4f}, beyond 1e-3 {float((rel > 1e-3).float().mean()):.4f}")
+        compare(f"parity {label} 64x48 4spp card vs CPU", got, want)
+
+    # 17b. the C++ golden, through the engine that mirrors the reference's CPU backend
+    img = render_image(parser.load(caustics, 32 / 24, dev), 32, 24, 16, 17, passes=10).cpu()
+    golden = torch.from_numpy(
+        np.fromfile(ROOT / "tests" / "goldens" / "caustics_32x24.raw", np.float32).reshape(24, 32, 4)
+    )
+    compare("parity golden caustics 32x24 16spp 10 passes vs C++ reference", img, golden, 0.1, 0.25)
+
+    # 17c. -r cpu through the CLI: the parity engine, and no K1
+    OUT.mkdir(parents=True, exist_ok=True)
+    w, h, spp = MAIN_W, MAIN_H, MAIN_SPP
+    png = OUT / f"parity_caustics_{w}x{h}.png"
+    megakernel.kernel_launches = 0
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["-r", "cpu", "-w", str(w), "-h", str(h), "--spp", str(spp), "--passes", "2", caustics,
+                       "-o", str(png)])
+    sys.stderr.write(err.getvalue())
+    engine_lines = [ln for ln in err.getvalue().splitlines() if ln.startswith("engine")]
+    print(f"parity path: cli -r cpu rc={rc} in {time.time() - t0:.1f} s, {engine_lines}, "
+          f"K1 launches {megakernel.kernel_launches}")
+    if rc != 0 or engine_lines != [f"engine: parity on {dev}"] or megakernel.kernel_launches != 0:
+        fail("-r cpu did not run the parity engine (or launched K1)")
+    pixels = read_png(png).astype(np.float64)
+    print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
+    if pixels.shape != (h, w, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
+        fail("the parity path's PNG")
+    scene = parser.load(caustics, w / h, dev)
+    render_pass(scene, 3, w, h, spp)
+    ms = timed(lambda: render_pass(scene, 3, w, h, spp), 3)
+    print(f"timing parity pass caustics {w}x{h} {spp}spp on {card}: {ms:.1f} ms per pass "
+          f"({w * h * spp / (ms / 1e3):.4g} samples/s; K1's pass is in phase 6)")
+
+    # 17d. config 5 through the parity engine: its traces go through K5
+    cfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+    scene = scenes["rigid"]
+    st.nearest_launches = st.occluded_launches = 0
+    img = render_pass(scene, 5, BIG_W, BIG_H, BIG_SPP, cfg)
+    torch.cuda.synchronize()
+    k5, k6 = st.nearest_launches, st.occluded_launches
+    finite = bool(torch.isfinite(img).all())
+    print(f"parity pass config 5 rigid {BIG_W}x{BIG_H} {BIG_SPP}spp depth {BIG_D}: K5 launches {k5}, K6 launches "
+          f"{k6}, finite {finite}, mean {img[..., :3].mean().item():.4g}")
+    if k5 == 0 or not finite:
+        fail("the parity engine's config-5 pass did not trace through K5")
+    ms = timed(lambda: render_pass(scene, 5, BIG_W, BIG_H, BIG_SPP, cfg), 3)
+    print(f"timing parity pass config 5 rigid {BIG_W}x{BIG_H} {BIG_SPP}spp depth {BIG_D} on {card}: {ms:.1f} ms "
+          f"per pass ({BIG_W * BIG_H * BIG_SPP / (ms / 1e3):.4g} samples/s)")
+    report_profile(f"parity pass config 5 rigid {BIG_W}x{BIG_H} {BIG_SPP}spp depth {BIG_D}", card,
+                   profile_device(lambda: render_pass(scene, 5, BIG_W, BIG_H, BIG_SPP, cfg)))
+
+
+def hold_grads(label: str, got, want) -> None:
+    """Boundary gradients, card against CPU: relative L2 gap per output and
+    no entry of another sign (among entries above 1% of the largest)."""
+    for name, g, w in zip(("centre", "radius"), got, want):
+        g, w = g.cpu(), w.cpu()
+        gap = rel_l2(g, w)
+        big = w.abs() > 0.01 * w.abs().max()
+        flips = int((torch.sign(g[big]) != torch.sign(w[big])).sum())
+        ok = bool(torch.isfinite(g).all()) and gap <= EDGE_GRAD_BAR and flips == 0 and float(w.abs().max()) > 0
+        print(f"{label} {name}: card {g.flatten().tolist()} CPU {w.flatten().tolist()}; relative L2 gap {gap:.3e} "
+              f"(<= {EDGE_GRAD_BAR}), sign flips {flips} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label} {name} gradient, card against CPU")
+
+
+def edge_phases(dev, card: str) -> None:
+    """Phase 18: the boundary terms (diff/edges.py) on engine mega."""
+    from kajo_tpu_torch import inverse_rendering, silhouette_recovery
+    from kajo_tpu_torch.diff import edges
+    from kajo_tpu_torch.diff.inverse import InverseRenderer
+    from kajo_tpu_torch.models.integrator import RenderConfig, render_image
+    from kajo_tpu_torch.ops import megakernel, megakernel_geom, megakernel_grad
+    from kajo_tpu_torch.ops.rng import CounterKey
+    from kajo_tpu_torch.scene.testscene import build_shadow_scene, build_silhouette_scene
+
+    cpu = torch.device("cpu")
+    w, h = EDGE_W, EDGE_H
+    ramp = (torch.arange(w, dtype=torch.float32) / w)[None, :, None].expand(h, w, 3).contiguous()
+    noise = torch.from_numpy(np.random.default_rng(4).normal(size=(h, w, 3)).astype(np.float32))
+    # 18a. both gradient functions on the card against the CPU, the same key
+    cases = ((edges.silhouette_loss_grads, lambda d: build_silhouette_scene(0.3, -0.2, device=d),
+              RenderConfig(max_depth=2), 256),
+             (edges.shadow_silhouette_grads, lambda d: build_shadow_scene(2.0, d), RenderConfig(max_depth=1), 4))
+    for cot_label, cot in (("ramp", ramp), ("random", noise)):
+        for fn, scene_of, cfg, n in cases:
+            hold_grads(f"{fn.__name__} {cot_label} {w}x{h} n_edge {n}",
+                       fn(scene_of(dev), CounterKey(1), cot.to(dev), w, h, cfg, n),
+                       fn(scene_of(cpu), CounterKey(1), cot, w, h, cfg, n))
+
+    # 18b. the silhouette recovery at its own size on engine mega, launches counted from 0
+    OUT.mkdir(parents=True, exist_ok=True)
+    summary = OUT / "silhouette.json"
+    megakernel.kernel_launches = megakernel_grad.kernel_launches = megakernel_geom.kernel_launches = 0
+    t0 = time.time()
+    rc = silhouette_recovery.main(["--out-prefix", str(OUT / "silhouette"), "--summary", str(summary)])
+    counts = dict(K1=megakernel.kernel_launches, K3=megakernel_grad.kernel_launches,
+                  K4=megakernel_geom.kernel_launches)
+    rec = json.loads(summary.read_text())
+    steps, errors = rec["steps"], rec["errors"]
+    print(f"silhouette recovery: rc={rc} in {time.time() - t0:.1f} s, engine {rec['engine']}, launches {counts}; "
+          f"position error by step {errors}; {rec['ms_per_step']:.3f} ms per step (CUDA events) on {card}")
+    want = dict(K1=2 * steps, K3=2 * steps, K4=2 * steps)
+    if rc != 0 or rec["engine"] != "mega" or counts != want:
+        fail(f"the silhouette recovery: launches {counts}, want {want} (rc {rc})")
+    if not errors[-1][1] < 0.5 * errors[0][1]:
+        fail("the silhouette recovery's position error did not fall below half its start")
+    size = rec["size"]
+    scene = build_silhouette_scene(*silhouette_recovery.START, silhouette_recovery.BACKGROUND, dev)
+    cot = torch.rand((size, size, 4), device=dev)
+    edge_ms = timed(lambda: edges.silhouette_loss_grads(scene, CounterKey(2), cot, size, size,
+                                                        RenderConfig(max_depth=2), rec["n_edge"]), 5)
+    print(f"silhouette recovery step on {card}: the boundary term {edge_ms:.3f} ms of {rec['ms_per_step']:.3f} "
+          f"({100 * edge_ms / rec['ms_per_step']:.1f}%)")
+
+    # 18c. recover an out-of-frame occluder from its cast shadow, on engine mega
+    cfg = RenderConfig(max_depth=1)
+    target = render_image(build_shadow_scene(2.0, dev), w, h, 16, 7, passes=2, config=cfg)
+    inv = InverseRenderer(build_shadow_scene(2.3, dev), target, w, h, spp=16, config=cfg,
+                          param_spec=("sphere_transform",), shadow_edges=True, n_shadow_edge=8, n_edge=64,
+                          learning_rate=3e-2, engine="mega", seed=9)
+    trail = []
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    for i in range(25):
+        inv.step()
+        if (i + 1) % 5 == 0:
+            trail.append(abs(float(inv.params["sphere_transform"].detach()[0, 0, 3]) - 2.0))
+    ev1.record()
+    torch.cuda.synchronize()
+    shadow_ms = ev0.elapsed_time(ev1) / 25
+    scene = build_shadow_scene(2.3, dev)
+    cot = torch.rand((h, w, 4), device=dev)
+    term_ms = timed(lambda: (edges.silhouette_loss_grads(scene, CounterKey(2), cot, w, h, cfg, 64),
+                             edges.shadow_silhouette_grads(scene, CounterKey(3), cot, w, h, cfg, 8)), 5)
+    print(f"cast-shadow recovery on engine mega: |x - 2| from 0.3 by 5 steps {trail} (kajo_tpu's test reaches "
+          f"< 0.12 on engine jax); {shadow_ms:.3f} ms per step (CUDA events) on {card}, the boundary terms "
+          f"{term_ms:.3f} ms of it ({100 * term_ms / shadow_ms:.1f}%)")
+    if not trail[-1] < 0.3:
+        fail("the cast-shadow recovery's error did not fall below its start")
+    report_profile(f"the boundary terms of a cast-shadow step {w}x{h}", card,
+                   profile_device(lambda: (edges.silhouette_loss_grads(scene, CounterKey(2), cot, w, h, cfg, 64),
+                                           edges.shadow_silhouette_grads(scene, CounterKey(3), cot, w, h, cfg, 8))))
+
+    # 18d. phase 12's configuration with and without the boundary term (a report: no bar): 10 steps on
+    # three seeds of the steps' renders, and the full 100 steps with the term beside phase 12's run
+    def fit(steps: int, seed: int, edged: bool) -> dict:
+        name = f"inverse_mega_s{seed}_n{steps}_edges{int(edged)}"
+        rc = inverse_rendering.main(["--engine", "mega", "-w", str(INV_W), "-h", str(INV_H), "--spp", str(INV_SPP),
+                                     "--depth", str(INV_D), "--steps", str(steps), "--seed", str(seed),
+                                     "--print-every", str(steps), "--out-prefix", str(OUT / name),
+                                     "--summary", str(OUT / f"{name}.json")] + (["--edge-gradients"] if edged else []))
+        if rc != 0:
+            fail(f"phase 12's configuration, {steps} steps, seed {seed}, edge_gradients={edged}")
+        rec = json.loads((OUT / f"{name}.json").read_text())
+        print(f"phase 12's configuration, {steps} steps, seed {seed}, edge_gradients={edged}: losses "
+              + " ".join(f"{x:.6f}" for x in (rec["losses"] if steps <= 10 else rec["losses"][::10] + rec["losses"][-1:]))
+              + f"; sphere offset {rec['offset'][0]:.4f} -> {rec['offset'][1]:.4f}; "
+              f"{rec['ms_per_step']:.3f} ms per step")
+        return rec
+
+    runs = {(seed, edged): fit(10, seed, edged) for seed in (7, 11, 13) for edged in (False, True)}
+    phase12 = json.loads((OUT / "inverse_mega.json").read_text())
+    print("phase 12's first 10 losses (100-step schedule): " + " ".join(f"{x:.6f}" for x in phase12["losses"][:10]))
+    full = fit(INV_STEPS, 7, True)
+    print(f"{INV_STEPS} steps, seed 7: loss at the end {phase12['losses'][-1]:.6f} without the term (phase 12), "
+          f"{full['losses'][-1]:.6f} with it; sphere offset {phase12['offset'][1]:.4f} / {full['offset'][1]:.4f}")
+    with_ms, without_ms = runs[7, True]["ms_per_step"], runs[7, False]["ms_per_step"]
+    print(f"edge term's share of a step at {INV_W}x{INV_H} {INV_SPP}spp depth {INV_D} on {card}: "
+          f"{with_ms - without_ms:.3f} of {with_ms:.3f} ms ({100 * (with_ms - without_ms) / with_ms:.1f}%)")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -1448,6 +1683,14 @@ def main() -> int:
     print(f"phases 11-13: {time.time() - t0:.1f} s")
     faulthandler.dump_traceback_later(STALL_S, exit=True)
     kernels += design_phases(dev, card, scenes)
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
+    parity_phases(dev, card, scenes)
+    print(f"phase 17: {time.time() - t0:.1f} s")
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
+    edge_phases(dev, card)
+    print(f"phase 18: {time.time() - t0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

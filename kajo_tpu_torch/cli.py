@@ -7,8 +7,10 @@ Renders on ``--device`` (default ``cuda``) with engine ``--engine`` (default
 ``auto``: the fused megakernel of ``ops/megakernel.py`` for scenes of up to
 512 objects, else the regenerating wavefront of ``models/wavefront.py``,
 which traces scenes above 1024 spheres through the streaming kernels of
-``ops/stream_trace.py``). On a GPU the CUDA kernels run; with ``--device
-cpu`` their plain PyTorch versions. ``--device cuda`` on a machine without a
+``ops/stream_trace.py``; ``-r cpu`` or ``--engine parity``: the fixed-depth
+scan of ``models/integrator.py``, the reference CPU backend's estimator, one
+pass per batch). On a GPU the CUDA kernels run; with ``--device cpu`` their
+plain PyTorch versions. ``--device cuda`` on a machine without a
 GPU exits non-zero; it never renders on the CPU instead. No scene file
 renders the built-in test scene; ``--procedural N`` the N-sphere field of
 ``scene/procedural.py``. Per batch of passes it prints elapsed time,
@@ -42,8 +44,8 @@ def build_argparser() -> argparse.ArgumentParser:
         dest="renderer",
         default="torch",
         choices=["torch", "cpu", "gl"],
-        help="renderer backend (torch; gl renders the GL backend's estimator through "
-        "the wavefront; cpu selects the parity engine, which is not ported yet)",
+        help="renderer backend (torch; cpu selects the parity engine, the reference CPU "
+        "backend's estimator; gl renders the GL backend's estimator through the wavefront)",
     )
     p.add_argument("scene", nargs="?", default=None, help="scene JSON (default: built-in test scene)")
     p.add_argument(
@@ -64,9 +66,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument(
         "--engine",
         default="auto",
-        choices=["auto", "mega", "fast"],
+        choices=["auto", "mega", "fast", "parity"],
         help="auto = mega where the megakernel takes the scene, else fast; mega = the fused "
-        "megakernel; fast = the regenerating wavefront",
+        "megakernel; fast = the regenerating wavefront; parity = the fixed-depth scan (-r cpu)",
     )
     p.add_argument("--spp", type=int, default=32, help="samples/pixel/pass (32, kajo default)")
     p.add_argument(
@@ -74,7 +76,7 @@ def build_argparser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         help="passes summed on the device per host readback (0 = auto: 8 for streamed "
-        "scenes on the fast engine, else 4)",
+        "scenes on the fast engine, else 4; the parity engine always 1)",
     )
     p.add_argument("--passes", type=int, default=8, help="progressive passes (8; 0 = run until Ctrl-C)")
     p.add_argument("--depth", type=int, default=8, help="max path depth (8)")
@@ -214,7 +216,9 @@ def main(argv=None) -> int:
     engine = select_engine(scene, requested)
     print(f"engine: {engine} on {device}", file=sys.stderr)
     n_passes = args.passes if args.passes > 0 else 1 << 30
-    if args.batch > 0:
+    if engine == "parity":
+        batch = 1  # one scan per pass, as the JAX CLI runs it
+    elif args.batch > 0:
         batch = args.batch
     else:
         batch = 8 if engine == "fast" and scene.num_spheres > STREAM_THRESHOLD else 4

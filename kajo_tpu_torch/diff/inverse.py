@@ -25,11 +25,16 @@ Seeds are u32 integers: a step renders with two of them (the JAX step splits
 a threefry key in two; the port takes the seeds, by default
 ``pass_seed(seed, 2 i)`` and ``pass_seed(seed, 2 i + 1)`` of step i).
 
-Not ported yet (ROADMAP Queue 1, the next gradient slice): engine ``jax``
-(the differentiable budget engine ``render_pass_budget``), the silhouette and
-shadow boundary terms (``edge_gradients``, ``shadow_edges``,
-``diff/edges.py``) and sharding over a ``mesh``. Asking for them raises
-NotImplementedError; nothing falls back.
+``edge_gradients`` (and ``shadow_edges``) add the boundary terms of
+``diff/edges.py`` on engine ``mega``: one zero-valued term, whose backward
+is the silhouette (and shadow) boundary gradient, is added to both renders,
+under a third key of its own (``CounterKey(seed).fold_in(i)`` of step i); a
+step without them keeps its two seeds and its bits. Engine
+``mega-fwd`` refuses them (the JAX package ignores them there).
+
+Not ported yet (ROADMAP Queue 1): engine ``jax`` (the differentiable budget
+engine ``render_pass_budget``, item 3) and sharding over a ``mesh`` (item
+4). Asking for them raises NotImplementedError; nothing falls back.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ from ..models.integrator import RenderConfig
 from ..ops import megakernel_geom, megakernel_grad
 from ..ops.megakernel import render_pass_megakernel_jvp, scene_zero_tangent
 from ..ops.megakernel_grad import leaf, with_leaves
-from ..ops.rng import pass_seed
+from ..ops.rng import CounterKey, pass_seed
 from ..scene.types import Scene
+from .edges import make_silhouette_term
 
 # Parameters the fused backward kernels differentiate: colours through K3,
 # sphere geometry through K4. The other material fields (exponent, IOR,
@@ -56,7 +62,7 @@ MEGA_GEOM_PARAMS = frozenset({"sphere_transform", "sphere_radius"})
 # Leaves exposed to the optimizer by default (config 4: position/radius/albedo).
 DEFAULT_PARAM_SPEC = ("sphere_transform", "sphere_radius", "diffuse")
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 1: the budget engine, diff/edges.py and engine jax)"
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 3: the budget engine and engine jax; item 4: the mesh)"
 MAX_FWD_DIRECTIONS = 64
 
 
@@ -123,8 +129,15 @@ class InverseRenderer:
     # takes, when every optimised parameter is one they differentiate
     engine: str = "auto"
     loss_clip: Any = None  # clamp render+target in the loss (HDR stability)
-    edge_gradients: bool = False  # not ported: raises
-    shadow_edges: bool = False  # not ported: raises
+    # add the silhouette boundary term (diff/edges.py) to the renders'
+    # backward: needed wherever a position or radius must be recovered
+    # through visibility changes (engine mega)
+    edge_gradients: bool = False
+    n_edge: int = 256
+    # also the NEE-visibility (shadow) boundary term: for a sphere recovered
+    # from its cast shadow
+    shadow_edges: bool = False
+    n_shadow_edge: int = 4
     # engine "mega-fwd": {name: bool tensor} restricting the scalars that get
     # a direction (e.g. one sphere's translation column)
     param_mask: Any = None
@@ -133,8 +146,6 @@ class InverseRenderer:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(f"sharding an inverse render over a mesh {NOT_PORTED}")
-        if self.edge_gradients or self.shadow_edges:
-            raise NotImplementedError(f"the boundary terms (edge_gradients, shadow_edges) {NOT_PORTED}")
         spec = set(self.param_spec)
         geom = spec & MEGA_GEOM_PARAMS
         if self.engine == "auto":
@@ -151,6 +162,9 @@ class InverseRenderer:
             raise NotImplementedError(f"engine jax {NOT_PORTED}")
         if self.engine not in ("mega", "mega-fwd"):
             raise ValueError(f"unknown engine {self.engine!r}")
+        edges = self.edge_gradients or self.shadow_edges
+        if edges and self.engine == "mega-fwd":
+            raise ValueError("engine mega-fwd takes no boundary terms (edge_gradients, shadow_edges); use engine mega")
         if self.engine == "mega" and not spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS):
             raise NotImplementedError(
                 f"engine mega differentiates {sorted(MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)}; "
@@ -163,6 +177,11 @@ class InverseRenderer:
         if self.engine == "mega":
             self._render = megakernel_grad.make_diff_renderer(
                 self.width, self.height, self.spp, self.config, geometry=bool(geom)
+            )
+            self._edge_term = (
+                make_silhouette_term(self.width, self.height, self.config, self.n_edge, self.shadow_edges,
+                                     self.n_shadow_edge)
+                if edges else None
             )
         else:
             self._directions = self._fwd_directions()
@@ -185,16 +204,22 @@ class InverseRenderer:
             )
         return dirs
 
-    def loss_and_grad(self, params: Dict[str, torch.Tensor], seed1: int, seed2: int):
+    def loss_and_grad(self, params: Dict[str, torch.Tensor], seed1: int, seed2: int, edge_key=None):
         """The cross-estimator loss of renders with seeds ``seed1`` and
-        ``seed2`` and its gradient -> (loss, {name: gradient})."""
+        ``seed2`` and its gradient -> (loss, {name: gradient}). With the
+        boundary terms, ``edge_key`` (a u32 seed or a key) draws them and
+        must be given."""
         if self.engine == "mega":
+            if self._edge_term is not None and edge_key is None:
+                raise ValueError("the boundary terms (edge_gradients, shadow_edges) need an edge_key")
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             with torch.enable_grad():
                 updated = apply_params(self.scene, leaves)
-                loss = cross_loss(
-                    self._render(updated, seed1), self._render(updated, seed2), self.target, self.loss_clip
-                )
+                i1, i2 = self._render(updated, seed1), self._render(updated, seed2)
+                if self._edge_term is not None:
+                    edge = self._edge_term(updated, edge_key)
+                    i1, i2 = i1 + edge, i2 + edge
+                loss = cross_loss(i1, i2, self.target, self.loss_clip)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
             return loss.detach(), dict(zip(leaves, grads))
         return self._loss_and_grad_fwd(params, seed1, seed2)
@@ -225,12 +250,14 @@ class InverseRenderer:
 
     def step(self, seed1: int | None = None, seed2: int | None = None) -> float:
         """One Adam step on the renders of two u32 seeds (by default the
-        step's own two) -> the loss before the step."""
+        step's own two) and, with the boundary terms, the step's own edge
+        key -> the loss before the step."""
         if seed1 is None:
             seed1 = pass_seed(self.seed, 2 * self.steps_done)
         if seed2 is None:
             seed2 = pass_seed(self.seed, 2 * self.steps_done + 1)
-        loss, grads = self.loss_and_grad(self.params, seed1, seed2)
+        edge_key = CounterKey(self.seed).fold_in(self.steps_done)
+        loss, grads = self.loss_and_grad(self.params, seed1, seed2, edge_key)
         self.opt.zero_grad(set_to_none=False)
         for name, p in self.params.items():
             p.grad = grads[name].to(p.dtype)

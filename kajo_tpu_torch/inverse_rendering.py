@@ -13,7 +13,8 @@ true scene at 64 spp (the JAX example's parity ``render_pass`` is not
 ported). Engine ``mega`` optimises every sphere's transform and every
 albedo (K1 forward, K3 and K4 backward), or the tensors ``--params`` names;
 ``mega-fwd`` the three scalars of the sphere's translation (K2, one pass per
-scalar and render).
+scalar and render). ``--edge-gradients`` adds the silhouette boundary term
+of ``diff/edges.py`` to engine ``mega``'s renders.
 
 Every ``--print-every`` steps it prints the loss, the sphere's offset from
 its true position and the ground's albedo error, and at the end how far
@@ -53,6 +54,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--depth", type=int, default=4)
     p.add_argument("--target-spp", type=int, default=64)
     p.add_argument("--seed", type=int, default=7, help="u32 seed of the steps' render seeds")
+    p.add_argument("--edge-gradients", action="store_true",
+                   help="engine mega: add the silhouette boundary term to the gradients")
     p.add_argument("--device", default="cuda")
     p.add_argument("--print-every", type=int, default=20)
     p.add_argument("--out-prefix", default="inverse")
@@ -99,7 +102,7 @@ def main(argv=None) -> int:
         kw = dict(param_spec=("sphere_transform",), param_mask={"sphere_transform": mask})
     inv = InverseRenderer(
         wrong, target, w, h, spp=spp, config=config, learning_rate=2e-2, loss_clip=1.0,
-        decay_steps=args.steps, engine=args.engine, seed=args.seed, **kw,
+        decay_steps=args.steps, engine=args.engine, seed=args.seed, edge_gradients=args.edge_gradients, **kw,
     )
 
     true_c = truth.sphere_transform[SPHERE, :3, 3]
@@ -151,7 +154,8 @@ def main(argv=None) -> int:
              render_pass_megakernel(inv.current_scene(), 9, w, h, spp, config).cpu().numpy())
     if args.summary:
         with open(args.summary, "w") as f:
-            json.dump(dict(engine=args.engine, params=list(inv.params), steps=args.steps, losses=losses,
+            json.dump(dict(engine=args.engine, edge_gradients=args.edge_gradients, params=list(inv.params),
+                           steps=args.steps, losses=losses,
                            offset=[offset0, offset1], albedo_error=[albedo0, albedo1], drift=moved,
                            ms_per_step=ms_per_step, device=str(device)), f)
     return 0 if np.isfinite(losses).all() else 1

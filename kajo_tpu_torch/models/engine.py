@@ -4,25 +4,28 @@
     1..512 objects;
   * ``fast``: the regenerating wavefront of ``models/wavefront.py``, for any
     scene; above ``geometry.STREAM_THRESHOLD`` spheres it traces through the
-    streaming kernels K5/K6.
+    streaming kernels K5/K6;
+  * ``parity``: the fixed-depth scan of ``models/integrator.py``, the
+    estimator as the reference's CPU backend computes it (the CLI's ``-r
+    cpu``), for any scene; above ``geometry.STREAM_THRESHOLD`` spheres it
+    traces through K5.
 
 ``auto`` follows the reference's rule on the port's device: ``mega`` for a
 scene on the CUDA device that the megakernel takes (the reference: on the
 TPU), else ``fast``, whose vectorised wavefront is the faster plain path on
 the CPU. An explicit engine runs on the scene's device: the CUDA kernels on
-a GPU, their plain PyTorch versions on the CPU. The JAX package's
-``parity`` engine comes with a later slice of the port, and asking for it
-raises.
+a GPU, their plain PyTorch versions on the CPU; ``auto`` never picks
+``parity``.
 """
 
 from __future__ import annotations
 
 from ..ops import megakernel
 from ..scene.types import Scene
-from .integrator import RenderConfig
+from .integrator import RenderConfig, render_pass
 from .wavefront import render_pass_fast
 
-ENGINES = ("auto", "mega", "fast")
+ENGINES = ("auto", "mega", "fast", "parity")
 
 
 def select_engine(scene: Scene, requested: str = "auto") -> str:
@@ -35,12 +38,8 @@ def select_engine(scene: Scene, requested: str = "auto") -> str:
                 f"{scene.num_objects}; use the fast engine"
             )
         return "mega"
-    if requested == "fast":
-        return "fast"
-    if requested == "parity":
-        raise ValueError(
-            "engine 'parity' is not ported yet: it comes with the integrator slice (models/integrator.py render_pass)"
-        )
+    if requested in ("fast", "parity"):
+        return requested
     raise ValueError(f"unknown engine {requested!r}")
 
 
@@ -53,7 +52,11 @@ def render_pass_engine(
     spp: int,
     config: RenderConfig = RenderConfig(),
 ):
-    """One pass of ``engine`` with u32 pass seed ``seed`` -> [H, W, 4]."""
-    if select_engine(scene, engine) == "mega":
+    """One pass of ``engine`` with u32 pass seed ``seed`` -> [H, W, 4]
+    (engine ``parity`` also takes a key, see ``ops/rng.py``)."""
+    engine = select_engine(scene, engine)
+    if engine == "mega":
         return megakernel.render_pass_megakernel(scene, seed, width, height, spp, config)
-    return render_pass_fast(scene, seed, width, height, spp, config)
+    if engine == "fast":
+        return render_pass_fast(scene, seed, width, height, spp, config)
+    return render_pass(scene, seed, width, height, spp, config)

@@ -15,9 +15,19 @@ The JAX CLI derives pass seeds from ``jax.random`` keys; the port does not
 reimplement threefry. :func:`pass_seed` hashes (seed, pass index) instead,
 so resuming at pass p needs no generator state. Tests that compare the two
 packages hand both the same u32 seed.
+
+The parity engine and the boundary terms draw as the JAX package's do,
+through a key: ``fold_in``, ``split`` and ``uniform``. :class:`CounterKey`
+is that key on PCG4D: a pure function of a u32 seed, the path of folds and
+splits, and the index of each element drawn, so a seed gives the same
+stream on the CPU and on the card. Any object with the same three methods
+serves (the tests hand in one that wraps a ``jax.random`` key).
 """
 
 from __future__ import annotations
+
+import math
+import numbers
 
 import torch
 
@@ -25,6 +35,8 @@ _M32 = 0xFFFFFFFF
 _INV24 = 1.0 / (1 << 24)
 # salt of the pass-seed hash: "PASS" in ASCII
 _PASS_SALT = 0x50415353
+# salts of a key's derivations: "FOLD" and "SPLT" in ASCII
+_FOLD_SALT, _SPLIT_SALT = 0x464F4C44, 0x53504C54
 
 
 def pcg4d(a, b, c, d):
@@ -70,3 +82,36 @@ def pass_seed(seed: int, pass_index: int) -> int:
     A pure function of its two counters, so pass p of a resumed render gets
     the same seed as in an uninterrupted one."""
     return pcg4d(seed & _M32, pass_index & _M32, _PASS_SALT, 0)[0]
+
+
+class CounterKey:
+    """A key with ``jax.random``'s key API on PCG4D.
+
+    The key is two u32 words, ``(seed, 0)`` at the root. ``fold_in(i)`` and
+    ``split(n)`` hash the words with the index and a salt of their own;
+    ``uniform`` hashes each element's flat index with the words."""
+
+    __slots__ = ("words",)
+
+    def __init__(self, seed: int = 0, words=None):
+        self.words = (seed & _M32, 0) if words is None else words
+
+    def _derive(self, i: int, salt: int) -> "CounterKey":
+        x, y, _, _ = pcg4d(self.words[0], self.words[1], i & _M32, salt)
+        return CounterKey(words=(x, y))
+
+    def fold_in(self, i: int) -> "CounterKey":
+        return self._derive(i, _FOLD_SALT)
+
+    def split(self, n: int = 2) -> list:
+        return [self._derive(i, _SPLIT_SALT) for i in range(n)]
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        """float32 U[0, 1) of ``shape`` on ``device``, 24 bits each."""
+        e = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+        return unit(pcg4d(e & _M32, e >> 32, *self.words)[0]).reshape(shape)
+
+
+def as_key(seed_or_key):
+    """A u32 seed as its :class:`CounterKey`; a key as it is."""
+    return CounterKey(int(seed_or_key)) if isinstance(seed_or_key, numbers.Integral) else seed_or_key

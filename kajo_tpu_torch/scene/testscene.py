@@ -2,8 +2,12 @@
 
 The scene the CLI renders when it gets no scene file: four unit spheres (one
 refractive, one Phong), one small emissive sphere, a ground plane, four walls
-and a ceiling, perspective camera. Colors are already linear. Both scene
-functions put the scene on ``device``, by default the CUDA device.
+and a ceiling, perspective camera. Colors are already linear. Beside it the
+scenes of the tests and the chip run: two lights (one-light NEE), a cluster
+of mirrors, and the boundary terms' probes (``build_silhouette_scene``, a
+flat-lit sphere; ``build_shadow_scene``, an occluder seen only through its
+shadow). Every scene function puts the scene on ``device``, by default the
+CUDA device.
 """
 
 from __future__ import annotations
@@ -137,3 +141,42 @@ def build_mirror_cluster(aspect_ratio: float = 4.0 / 3.0, device="cuda") -> Scen
     view, projection, background, planes, spheres = mirror_cluster_parts(aspect_ratio)
     camera = Camera(transform=torch.tensor(view), projection=torch.tensor(projection))
     return make_scene(camera, background, planes, spheres, device)
+
+
+def build_silhouette_scene(cx: float = 0.0, cy: float = 0.0, background=(0.3, 0.3, 0.3, 1.0), device="cuda") -> Scene:
+    """A self-luminous unit sphere at (cx, cy, 0) seen from z = -5 on a
+    uniform background: its position reaches the image only through its
+    silhouette (``tests/test_edges.py``'s ``_edge_scene``)."""
+    camera = Camera(
+        transform=math3d.look_at([0, 0, -5], [0, 0, 0], [0, -1, 0]),
+        projection=math3d.perspective(45.0, 1.0, 0.1, 100.0),
+    )
+    spheres = [{
+        "transform": math3d.translate(math3d.identity(), [cx, cy, 0.0]),
+        "radius": 1.0,
+        "material": {"emission": np.array([2.0, 2.0, 2.0, 0.0], np.float32)},
+    }]
+    return make_scene(camera, np.array(background, np.float32), [], spheres, device)
+
+
+def build_shadow_scene(ox: float = 2.0, device="cuda") -> Scene:
+    """An absorbing sphere at (ox, -1, 0), out of the frame, casting a shadow
+    on a floor from a light high above: it reaches the image only through
+    NEE visibility (``tests/test_edges.py``'s ``_shadow_scene``)."""
+    camera = Camera(
+        transform=math3d.look_at([3.0, -2.0, 0.0], [3.0, 1.0, 0.0], [0, 0, 1]),
+        projection=math3d.perspective(30.0, 1.0, 0.1, 100.0),
+    )
+    planes = [{
+        "transform": math3d.translate(math3d.identity(), [0.0, 1.0, 0.0]),
+        "material": {"diffuse": np.array([0.8, 0.8, 0.8, 1.0], np.float32)},
+    }]
+    spheres = [
+        {"transform": math3d.translate(math3d.identity(), [ox, -1.0, 0.0]), "radius": 0.4, "material": {}},
+        {
+            "transform": math3d.translate(math3d.identity(), [0.0, -5.0, 0.0]),
+            "radius": 0.5,
+            "material": {"emission": np.array([30.0, 30.0, 30.0, 0.0], np.float32)},
+        },
+    ]
+    return make_scene(camera, np.array([0.0, 0.0, 0.0, 1.0], np.float32), planes, spheres, device)

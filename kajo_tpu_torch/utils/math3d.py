@@ -9,11 +9,15 @@ operations in the same order as the JAX package's numpy path, so the two
 packages build identical scenes.
 
 Matrix convention: (4, 4) arrays applied to column vectors, ``M @ v``.
+
+:func:`project` is the JAX path's projection on PyTorch tensors, for the
+boundary terms (``diff/edges.py``): float32 and differentiable.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def identity() -> np.ndarray:
@@ -96,3 +100,21 @@ def perspective(fovy_deg: float, aspect: float, z_near: float, z_far: float) -> 
     m[2, 3] = -(2.0 * z_far * z_near) / (z_far - z_near)
     m[3, 2] = -1.0
     return m
+
+
+def _mat_vec(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Rows of ``m`` [R, 3] dotted with points ``p`` [..., 3] -> [..., R],
+    as float32 products and sums: no matrix unit, so no TF32 on the card
+    (the JAX path asks for ``Precision.HIGHEST`` for the same reason)."""
+    return p[..., None, 0] * m[:, 0] + p[..., None, 1] * m[:, 1] + p[..., None, 2] * m[:, 2]
+
+
+def project(p: torch.Tensor, view: torch.Tensor, proj: torch.Tensor):
+    """World points [..., 3] -> ((x, y, depth) in [0, 1]³, clip-space w); the
+    inverse of the camera's unproject. ``w > 0`` is in front of the camera."""
+    view, proj = view.to(torch.float32), proj.to(torch.float32)
+    pv = (proj[:, :, None] * view[None, :, :]).sum(1)
+    h = _mat_vec(pv[:3, :3], p) + pv[:3, 3]
+    w = _mat_vec(pv[3:, :3], p)[..., 0] + pv[3, 3]
+    ndc = h / w[..., None]
+    return (ndc + 1.0) * 0.5, w

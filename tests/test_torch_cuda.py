@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 megakernel (K1, in both of its regimes), the streaming trace (K5 nearest hit, K6 occlusion, and the
-nearest-hit designs K7, K8, K9) and the gradient kernels (K2 forward mode, K3 material and K4 geometry gradients).
+nearest-hit designs K7, K8, K9) and the gradient kernels (K2 forward mode, K3 material and K4 geometry gradients);
+and the parity engine and the boundary terms, which have no kernel of their own, on the card against the CPU.
 
 Needs a CUDA device, nvcc and no jax, so on a GPU machine run it without the
 JAX test configuration:
@@ -538,3 +539,55 @@ def test_inverse_step_on_the_card(device, monkeypatch):
         inv = InverseRenderer(scene, target, W, H, spp=SPP, loss_clip=1.0, **kw)
         loss = inv.step()
         assert torch.isfinite(torch.tensor(loss))
+
+
+@pytest.mark.parametrize(
+    "name,config",
+    [("caustics.json", RenderConfig()), ("scaled.json", RenderConfig()),
+     ("two-light", RenderConfig(one_light_nee=True))],
+    ids=["caustics", "scaled", "one-light"],
+)
+def test_parity_pass_on_the_card_equals_the_cpu(device, name, config):
+    """The parity engine (plain PyTorch, no kernel of its own) on the card
+    against the same pass on the CPU: the counter key gives both the same
+    stream. Bars of the megakernel against its plain version."""
+    from kajo_tpu_torch.models.integrator import render_pass
+
+    def load(dev):
+        if name == "two-light":
+            return build_two_light_scene(64 / 48, dev)
+        return parser.load(os.path.join(DATA, name), 64 / 48, dev)
+
+    before = megakernel.kernel_launches
+    got = render_pass(load(device), 1234, 64, 48, 4, config)
+    want = render_pass(load("cpu"), 1234, 64, 48, 4, config)
+    assert got.device.type == "cuda" and megakernel.kernel_launches == before
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert (_tm(got) - _tm(want)).abs().mean().item() <= 5e-4
+    assert abs(got[..., :3].mean() / want[..., :3].mean() - 1).item() <= 0.01
+
+
+@pytest.mark.parametrize("kind", ["silhouette", "shadow"])
+def test_boundary_grads_on_the_card_equal_the_cpu(device, kind):
+    """silhouette_loss_grads and shadow_silhouette_grads at 32x32 with the
+    same key on the card and on the CPU: relative L2 gap <= 1e-3, no sign
+    flipped."""
+    from kajo_tpu_torch.diff import edges
+    from kajo_tpu_torch.ops.rng import CounterKey
+    from kajo_tpu_torch.scene.testscene import build_shadow_scene, build_silhouette_scene
+
+    cot = torch.from_numpy(np.random.default_rng(4).normal(size=(32, 32, 3)).astype(np.float32))
+    fn, scene_of, config, n = {
+        "silhouette": (edges.silhouette_loss_grads, lambda d: build_silhouette_scene(0.3, -0.2, device=d),
+                       RenderConfig(max_depth=2), 256),
+        "shadow": (edges.shadow_silhouette_grads, lambda d: build_shadow_scene(2.0, d), RenderConfig(max_depth=1), 4),
+    }[kind]
+    got = fn(scene_of(device), CounterKey(1), cot.to(device), 32, 32, config, n)
+    want = fn(scene_of("cpu"), CounterKey(1), cot, 32, 32, config, n)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.isfinite(g).all() and float(w.abs().max()) > 0
+        assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= 1e-3
+        big = w.abs() > 0.01 * w.abs().max()
+        assert torch.equal(torch.sign(g[big]), torch.sign(w[big]))

@@ -19,6 +19,8 @@ inverse-rendering entry point, on the CPU (plain versions of K1-K4).
     port's own loss with the same seeds (the pattern of
     ``test_inverse_mega_fwd_grads_match_fd``, rtol 0.05, atol 1e-5);
   * what is not ported raises NotImplementedError naming its ROADMAP item;
+    engine ``mega-fwd`` refuses the boundary terms; on engine ``mega`` they
+    leave the loss's bits and add their gradient;
   * ``python -m kajo_tpu_torch.inverse_rendering --device cpu`` at a tiny
     size, both engines.
 """
@@ -35,6 +37,7 @@ from kajo_tpu_torch.diff import inverse
 from kajo_tpu_torch.models.integrator import RenderConfig
 from kajo_tpu_torch.ops import megakernel, megakernel_grad
 from kajo_tpu_torch.ops.megakernel import render_pass_megakernel
+from kajo_tpu_torch.ops.rng import CounterKey, pass_seed
 from kajo_tpu_torch.scene.testscene import build_test_scene
 
 W, H, SPP = 8, 6, 4
@@ -186,22 +189,51 @@ def test_mega_fwd_grads_match_fd():
 
 
 @pytest.mark.parametrize(
-    "kw,match",
+    "kw,error,match",
     [
-        (dict(engine="jax"), "engine jax"),
-        (dict(engine="auto"), "engine auto"),
-        (dict(edge_gradients=True), "boundary terms"),
-        (dict(shadow_edges=True), "boundary terms"),
-        (dict(mesh=object()), "mesh"),
-        (dict(engine="mega", param_spec=("refractive_index",)), "refractive_index"),
+        (dict(engine="jax"), NotImplementedError, "engine jax"),
+        (dict(engine="auto"), NotImplementedError, "engine auto"),
+        (dict(engine="mega-fwd", edge_gradients=True), ValueError, "mega-fwd takes no boundary terms"),
+        (dict(engine="mega-fwd", shadow_edges=True), ValueError, "mega-fwd takes no boundary terms"),
+        (dict(mesh=object()), NotImplementedError, "mesh"),
+        (dict(engine="mega", param_spec=("refractive_index",)), NotImplementedError, "refractive_index"),
     ],
     ids=["engine-jax", "auto-on-cpu", "edges", "shadow-edges", "mesh", "mega-ior"],
 )
-def test_not_ported_raises(kw, match):
+def test_not_ported_raises(kw, error, match):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item; the boundary terms, ported, are refused by engine mega-fwd alone
+    (the JAX package ignores them there)."""
     scene = _scene()
-    with pytest.raises(NotImplementedError, match=match) as err:
+    with pytest.raises(error, match=match) as err:
         inverse.InverseRenderer(scene, torch.zeros((H, W, 4)), W, H, **kw)
-    assert "ROADMAP Queue 1" in str(err.value)
+    if error is NotImplementedError:
+        assert "ROADMAP Queue 1" in str(err.value)
+
+
+@pytest.mark.parametrize("flag", ["edge_gradients", "shadow_edges"])
+def test_boundary_terms_run_on_mega_and_leave_the_loss(flag):
+    """On engine mega a boundary term adds nothing to the loss, bit for bit,
+    and adds its gradient to the spheres' translations; a step without it
+    keeps its seeds pass_seed(seed, 2i), pass_seed(seed, 2i + 1); a loss
+    with the term and no edge key raises."""
+    scene = _scene()
+    target = _target(scene)
+    kw = dict(spp=SPP, config=RenderConfig(**CFG), param_spec=("sphere_transform",), engine="mega", seed=5)
+    plain = inverse.InverseRenderer(scene, target, W, H, **kw)
+    edged = inverse.InverseRenderer(scene, target, W, H, **kw, **{flag: True}, n_edge=64, n_shadow_edge=2)
+    seed1, seed2 = pass_seed(5, 0), pass_seed(5, 1)
+    loss0, g0 = plain.loss_and_grad(plain.params, seed1, seed2)
+    loss1, g1 = edged.loss_and_grad(edged.params, seed1, seed2, CounterKey(5).fold_in(0))
+    with pytest.raises(ValueError, match="edge_key"):
+        edged.loss_and_grad(edged.params, seed1, seed2)
+    assert torch.equal(loss0, loss1)
+    g0, g1 = g0["sphere_transform"], g1["sphere_transform"]
+    assert torch.isfinite(g1).all() and not torch.equal(g0[:, :3, 3], g1[:, :3, 3])
+    rest0, rest1 = g0.clone(), g1.clone()
+    rest0[:, :3, 3] = rest1[:, :3, 3] = 0
+    assert torch.equal(rest0, rest1)
+    assert plain.step() == float(loss0) and edged.step() == float(loss1)
 
 
 def test_mega_fwd_direction_cap():

@@ -125,6 +125,24 @@ def port_packed(scene, config=None):
     return prepare_pass(scene, 1, 1, 1, config or RenderConfig()).packed.numpy()
 
 
+class JaxKey:
+    """A ``jax.random`` key with the port's key API (``fold_in``, ``split``,
+    ``uniform``): the port's parity engine and boundary terms then draw the
+    JAX package's uniforms for the same key, handed over as numpy arrays."""
+
+    def __init__(self, key):
+        self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
+
+    def fold_in(self, i):
+        return JaxKey(jax.random.fold_in(self.key, i))
+
+    def split(self, n=2):
+        return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def uniform(self, shape, device):
+        return torch.from_numpy(np.array(jax.random.uniform(self.key, shape, dtype=np.float32))).to(device)
+
+
 def rel_l2(got, want):
     """||got - want|| / ||want|| over every entry, in float64."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
