@@ -137,7 +137,30 @@ with a non-zero exit when it fails:
    step, and the device busy share of the terms under torch.profiler; and
    phase 12's configuration for 10 steps with and without edge_gradients
    on three seeds, and for 100 steps with it, its losses and offsets
-   printed beside phase 12's (a report: no bar).
+   printed beside phase 12's (a report: no bar);
+19. the budget engine (models/wavefront.py render_pass_budget, engine jax;
+   plain PyTorch on the card, through the dense trace or K5/K6 and the
+   nearest hit's VJP): (a) the budget pass equal to the fast pass bit for
+   bit on every pixel whose lane completed its samples (build_test_scene
+   128x96, 16 spp, depth 4; the share of lanes that did not printed); (b)
+   one budget loss's gradients in sphere_transform, sphere_radius and
+   diffuse on the card against the CPU (64x48, 4 spp, depth 3; phase 18's
+   bars); (c) every radius's gradient of random_spheres_scene(2000) at
+   32x24, 4 spp, depth 2 through K5 and the VJP against the dense trace's
+   (rtol 0.1 on the entries above 1e-3 of the largest; K5 must launch);
+   (d) one budget-loss gradient in the radii at config 5 (rigid), timed,
+   with K5's and K6's launches (both non-zero) and the gradient finite and
+   non-zero; (e) kajo_tpu_torch.inverse_rendering.main --engine jax at
+   phase 12's configuration for JAX_STEPS steps, counting launches from 0:
+   K1 3 (the target and the two PNGs), K2-K5 none; every loss finite and
+   the sphere's offset smaller at the end; ms per step, and the device busy
+   share of a budget pass under torch.profiler; (f) the same steps again: the
+   same losses and tensors to the bit; (g) the cast-shadow recovery of
+   tests/test_edges.py on engine jax (shadow_edges, SHADOW_STEPS steps):
+   error below kajo_tpu's bar of 0.12; (h) K3's diffuse gradient on
+   scaled.json against engine jax's, 6 seeds each with the JAX test's
+   streams (tests/test_megakernel_grad.py: atol 0.25 max|jax|); (i) the
+   drift of (e)'s losses beside phase 18d's engine mega runs (a report).
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -183,7 +206,7 @@ rays and the results; K5's bound on the same call is printed beside it.
 Every line is flushed as it is printed, and a phase that stalls for
 STALL_S seconds dumps the Python stack of every thread and ends the run.
 
-Phases 17 and 18 run no kernel of their own and add nothing to the kernels
+Phases 17 to 19 run no kernel of their own and add nothing to the kernels
 line. The last two lines are the kernels' JSON record and {"ok": true,
 "device": ...}. Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1521,17 +1544,18 @@ def parity_phases(dev, card: str, scenes: dict) -> None:
                    profile_device(lambda: render_pass(scene, 5, BIG_W, BIG_H, BIG_SPP, cfg)))
 
 
-def hold_grads(label: str, got, want) -> None:
-    """Boundary gradients, card against CPU: relative L2 gap per output and
-    no entry of another sign (among entries above 1% of the largest)."""
-    for name, g, w in zip(("centre", "radius"), got, want):
+def hold_grads(label: str, got, want, names=("centre", "radius")) -> None:
+    """Gradients, card against CPU: relative L2 gap per output and no entry
+    of another sign (among entries above 1% of the largest)."""
+    for name, g, w in zip(names, got, want):
         g, w = g.cpu(), w.cpu()
         gap = rel_l2(g, w)
         big = w.abs() > 0.01 * w.abs().max()
         flips = int((torch.sign(g[big]) != torch.sign(w[big])).sum())
         ok = bool(torch.isfinite(g).all()) and gap <= EDGE_GRAD_BAR and flips == 0 and float(w.abs().max()) > 0
-        print(f"{label} {name}: card {g.flatten().tolist()} CPU {w.flatten().tolist()}; relative L2 gap {gap:.3e} "
-              f"(<= {EDGE_GRAD_BAR}), sign flips {flips} {'ok' if ok else 'FAILED'}")
+        values = f"card {g.flatten().tolist()} CPU {w.flatten().tolist()}; " if g.numel() <= 8 else ""
+        print(f"{label} {name}: {values}relative L2 gap {gap:.3e} (<= {EDGE_GRAD_BAR}), sign flips {flips} "
+              f"{'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"{label} {name} gradient, card against CPU")
 
@@ -1643,6 +1667,218 @@ def edge_phases(dev, card: str) -> None:
           f"{with_ms - without_ms:.3f} of {with_ms:.3f} ms ({100 * (with_ms - without_ms) / with_ms:.1f}%)")
 
 
+# phase 19's steps at phase 12's configuration, the entry point's run (19e)
+# and its repeat (19f), and of the cast-shadow recovery (19g). Cut from the
+# 20, 5 and 25 steps first asked for (and 19i's 10-step runs on two more
+# seeds dropped): an engine jax step takes 7-13 s on the card (host-bound),
+# and the whole script must end within 1200 s
+JAX_STEPS, SHADOW_STEPS = 3, 8
+YARD_W, YARD_H, YARD_SPP, YARD_SEEDS = 16, 12, 4, 6  # phase 19h: tests/test_megakernel_grad.py's size
+
+
+def jax_fit(name: str, steps: int, seed: int) -> dict:
+    """``inverse_rendering.main --engine jax`` at phase 12's configuration ->
+    its summary."""
+    from kajo_tpu_torch import inverse_rendering
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    rc = inverse_rendering.main(["--engine", "jax", "-w", str(INV_W), "-h", str(INV_H), "--spp", str(INV_SPP),
+                                 "--depth", str(INV_D), "--steps", str(steps), "--seed", str(seed),
+                                 "--print-every", str(max(steps // 4, 1)), "--out-prefix", str(OUT / name),
+                                 "--summary", str(OUT / f"{name}.json")])
+    if rc != 0:
+        fail(f"engine jax at phase 12's configuration, {steps} steps, seed {seed}: rc {rc}")
+    return json.loads((OUT / f"{name}.json").read_text())
+
+
+def budget_phases(dev, card: str, scenes: dict) -> None:
+    """Phase 19: engine jax, the differentiable budget engine (plain PyTorch
+    on the card, tracing through the dense trace, or K5/K6 and the nearest
+    hit's VJP), which runs no kernel of its own."""
+    from kajo_tpu_torch.diff.inverse import InverseRenderer, apply_params, extract_params, render_loss
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig, render_image
+    from kajo_tpu_torch.ops import geometry, megakernel, megakernel_geom, megakernel_grad
+    from kajo_tpu_torch.ops import stream_trace as st
+    from kajo_tpu_torch.scene import parser
+    from kajo_tpu_torch.scene.procedural import random_spheres_scene
+    from kajo_tpu_torch.scene.testscene import build_shadow_scene, build_test_scene
+
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    # 19a. the budget pass against the fast pass: one lane a pixel, the same body and seed
+    w, h, spp, cfg = INV_W, INV_H, INV_SPP, RenderConfig(max_depth=INV_D)
+    scene, passes = build_test_scene(w / h, dev), {}
+    ms_fast = timed(lambda: passes.update(fast=wavefront.render_pass_fast(scene, 19, w, h, spp, cfg)), 1)
+    ms_budget = timed(lambda: passes.update(budget=wavefront.render_pass_budget(scene, 19, w, h, spp, cfg)), 1)
+    fast, budget = passes["fast"].reshape(-1, 4), passes["budget"].reshape(-1, 4)
+    grid = int(spp**0.5)
+    _, completed = wavefront.render_lanes_budget(geometry.prepare_scene(scene), torch.arange(w * h, device=dev),
+                                                 torch.tensor(19, device=dev), w, h, grid * grid, grid, cfg,
+                                                 wavefront.BUDGET_ITERS_PER_SAMPLE * grid * grid)
+    done = completed == grid * grid
+    same = bool(torch.equal(budget[done], fast[done]))
+    print(f"budget pass vs fast pass build_test_scene {w}x{h} {spp}spp depth {INV_D}: equal bit for bit on the "
+          f"{int(done.sum())} pixels whose lane completed its samples: {same}; lanes that did not: "
+          f"{int((~done).sum())} of {w * h} ({100 * float((~done).float().mean()):.4f}%)")
+    if not same or not bool(done.any()):
+        fail("the budget pass differs from the fast pass on a completed pixel")
+    print(f"timing budget pass build_test_scene {w}x{h} {spp}spp depth {INV_D} on {card}: {ms_budget:.1f} ms "
+          f"({4 * spp} iterations, no gradient), fast pass {ms_fast:.1f} ms")
+
+    # 19b. one budget loss's gradients, card against CPU, the same seeds
+    spec = ("sphere_transform", "sphere_radius", "diffuse")
+    target = torch.from_numpy(np.random.default_rng(19).uniform(0.0, 1.0, (48, 64, 4)).astype(np.float32))
+
+    def loss_grads(d):
+        s = build_test_scene(64 / 48, d)
+        leaves = {k: v.requires_grad_(True) for k, v in extract_params(s, spec).items()}
+        loss = render_loss(leaves, s, target.to(d), 1, 2, 64, 48, 4, RenderConfig(max_depth=3), loss_clip=1.0)
+        return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
+
+    (loss_card, g_card), (loss_cpu, g_cpu) = loss_grads(dev), loss_grads(cpu)
+    print(f"budget loss build_test_scene 64x48 4spp depth 3: card {loss_card.item():.8g}, CPU {loss_cpu.item():.8g}")
+    hold_grads("budget loss gradient 64x48 4spp depth 3 card vs CPU", g_card, g_cpu, spec)
+
+    # 19c. every radius's gradient through K5 and the nearest hit's VJP against the dense trace's
+    field = random_spheres_scene(2000, seed=21, extent=15.0, n_lights=2, aspect_ratio=32 / 24, device=dev)
+
+    def radius_grad():
+        r = field.sphere_radius.clone().requires_grad_(True)
+        img = wavefront.render_pass_budget(apply_params(field, {"sphere_radius": r}), 11, 32, 24, 4,
+                                           RenderConfig(max_depth=2))
+        return torch.autograd.grad(img[..., :3].mean(), [r])[0]
+
+    st.nearest_launches = st.occluded_launches = 0
+    g_stream = radius_grad()
+    torch.cuda.synchronize()
+    k5, k6 = st.nearest_launches, st.occluded_launches
+    before, geometry.STREAM_THRESHOLD = geometry.STREAM_THRESHOLD, 10**9
+    try:
+        g_dense = radius_grad()
+    finally:
+        geometry.STREAM_THRESHOLD = before
+    big = g_dense.abs() > 1e-3 * g_dense.abs().max()
+    worst = float(((g_stream[big] - g_dense[big]).abs() / g_dense[big].abs()).max())
+    cos = float((g_stream * g_dense).sum() / (g_stream.norm() * g_dense.norm()).clamp_min(1e-30))
+    ok = (bool(torch.isfinite(g_stream).all()) and float(g_dense.abs().max()) > 0 and worst <= 0.1 and k5 > 0)
+    print(f"radius gradient random_spheres_scene(2000) 32x24 4spp depth 2, streamed (K5 {k5}, K6 {k6} launches) "
+          f"vs dense: {int(big.sum())} entries above 1e-3 of the largest, largest relative gap {worst:.3e} "
+          f"(<= 0.1), cosine {cos:.7f} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail("the streamed radius gradient against the dense one")
+
+    # 19d. config 5: one budget-loss gradient with respect to the radii through K5/K6
+    scene5, cfg5 = scenes["rigid"], RenderConfig(max_depth=BIG_D, one_light_nee=True)
+    target5 = wavefront.render_pass_fast(scene5, 1, BIG_W, BIG_H, BIG_SPP, cfg5)
+
+    def grad5():
+        r = scene5.sphere_radius.clone().requires_grad_(True)
+        loss = render_loss({"sphere_radius": r}, scene5, target5, 2, 3, BIG_W, BIG_H, BIG_SPP, cfg5)
+        return torch.autograd.grad(loss, [r])[0]
+
+    st.nearest_launches = st.occluded_launches = 0
+    ms5 = timed(lambda: passes.update(g5=grad5()), 1)
+    g5, k5, k6 = passes["g5"], st.nearest_launches, st.occluded_launches
+    iters = 4 * BIG_SPP
+    finite, nonzero = bool(torch.isfinite(g5).all()), int(torch.count_nonzero(g5))
+    print(f"budget-loss radius gradient config 5 rigid {BIG_W}x{BIG_H} {BIG_SPP}spp depth {BIG_D}: K5 launches {k5} "
+          f"(2 renders x {iters} iterations, each run again in the backward: {4 * iters}), K6 launches {k6}; "
+          f"finite {finite}, {nonzero} of {g5.numel()} radii with a gradient, largest {g5.abs().max().item():.4g}; "
+          f"{ms5:.1f} ms (CUDA events) on {card}")
+    if k5 == 0 or k6 == 0 or not finite or nonzero == 0:
+        fail("the config-5 budget gradient")
+    print(f"phase 19a-d: {time.time() - t0:.1f} s")
+
+    # 19e. the entry point on engine jax, launches counted from 0
+    t0 = time.time()
+    megakernel.kernel_launches = megakernel.jvp_launches = 0
+    megakernel_grad.kernel_launches = megakernel_geom.kernel_launches = st.nearest_launches = 0
+    rec = jax_fit("inverse_jax", JAX_STEPS, 7)
+    counts = dict(K1=megakernel.kernel_launches, K2=megakernel.jvp_launches, K3=megakernel_grad.kernel_launches,
+                  K4=megakernel_geom.kernel_launches, K5=st.nearest_launches)
+    losses = np.asarray(rec["losses"])
+    print(f"gradient path, engine jax: {JAX_STEPS} steps in {time.time() - t0:.1f} s; launches {counts}; "
+          f"{rec['ms_per_step']:.3f} ms per step (CUDA events) on {card}; loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"sphere offset {rec['offset'][0]:.4f} -> {rec['offset'][1]:.4f}; "
+          f"ground albedo error {rec['albedo_error'][0]:.4f} -> {rec['albedo_error'][1]:.4f}")
+    if counts != dict(K1=3, K2=0, K3=0, K4=0, K5=0):
+        fail(f"engine jax: launches {counts}, want K1 3 (the target and two PNGs) and no other")
+    if not np.isfinite(losses).all() or not rec["offset"][1] < rec["offset"][0]:
+        fail("engine jax: a loss is not finite or the sphere's offset did not shrink")
+    # a step's trace holds ~370k device events, whose processing takes minutes: profile a budget pass
+    report_profile(f"a budget pass without a gradient {w}x{h} {spp}spp depth {INV_D}", card,
+                   profile_device(lambda: wavefront.render_pass_budget(scene, 19, w, h, spp, cfg)))
+
+    # 19f. the same steps again: the same losses and tensors, to the bit
+    t0 = time.time()
+    again = jax_fit("inverse_jax_again", JAX_STEPS, 7)
+    same = rec["losses"] == again["losses"] and rec["tensors"] == again["tensors"]
+    print(f"engine jax, {JAX_STEPS} steps twice: the same losses and tensors to the bit {same} "
+          f"({' '.join(f'{x:.9g}' for x in rec['losses'])}); {time.time() - t0:.1f} s")
+    if not same:
+        fail("engine jax's steps did not repeat bit for bit")
+
+    # 19g. recover an out-of-frame occluder from its cast shadow, on engine jax
+    t0 = time.time()
+    cfg1, ew, eh = RenderConfig(max_depth=1), EDGE_W, EDGE_H
+    target = render_image(build_shadow_scene(2.0, dev), ew, eh, 16, 7, passes=2, config=cfg1)
+    inv = InverseRenderer(build_shadow_scene(2.3, dev), target, ew, eh, spp=16, config=cfg1,
+                          param_spec=("sphere_transform",), shadow_edges=True, n_shadow_edge=8, n_edge=64,
+                          learning_rate=3e-2, engine="jax", seed=9)
+    trail = []
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ev0.record()
+    for i in range(SHADOW_STEPS):
+        inv.step()
+        if (i + 1) % 2 == 0:
+            trail.append(abs(float(inv.params["sphere_transform"].detach()[0, 0, 3]) - 2.0))
+    ev1.record()
+    torch.cuda.synchronize()
+    print(f"cast-shadow recovery on engine jax: |x - 2| from 0.3 by 2 steps {trail} (bar < 0.12, kajo_tpu's test's "
+          f"after 25 steps); {ev0.elapsed_time(ev1) / SHADOW_STEPS:.3f} ms per step (CUDA events) on {card}; "
+          f"{time.time() - t0:.1f} s")
+    if not trail[-1] < 0.12:
+        fail("the cast-shadow recovery on engine jax")
+
+    # 19h. K3's diffuse gradient against engine jax's, independent seeds (statistical)
+    t0 = time.time()
+    yw, yh, cfg3 = YARD_W, YARD_H, RenderConfig(max_depth=3)
+    scaled = parser.load(str(ROOT / "data" / "scaled.json"), yw / yh, dev)
+    cot = torch.full((yh, yw, 3), 1.0 / (yh * yw * 3), device=dev)
+    megakernel_grad.kernel_launches = 0
+    # the JAX test's streams: seed_from_key(PRNGKey(n)) is the u32 seed 2 n
+    kern = torch.stack([megakernel_grad.material_grads(scaled, 2 * (100 + i), cot, yw, yh, YARD_SPP, cfg3)["diffuse"]
+                        for i in range(YARD_SEEDS)]).mean(0)
+    k3 = megakernel_grad.kernel_launches
+
+    def budget_diffuse(seed):
+        diffuse = scaled.materials.diffuse.clone().requires_grad_(True)
+        img = wavefront.render_pass_budget(apply_params(scaled, {"diffuse": diffuse}), seed, yw, yh, YARD_SPP, cfg3)
+        return torch.autograd.grad(img[..., :3].mean(), [diffuse])[0][:, :3]
+
+    ref = torch.stack([budget_diffuse(2 * (200 + i)) for i in range(YARD_SEEDS)]).mean(0)
+    scale = float(ref.abs().max())
+    worst = float((kern - ref).abs().max())
+    ok = scale > 0 and worst <= 0.25 * scale and k3 == YARD_SEEDS
+    print(f"K3 ({k3} launches) vs engine jax, diffuse gradient scaled.json {yw}x{yh} {YARD_SPP}spp depth 3, "
+          f"{YARD_SEEDS} seeds each: largest gap {worst:.4g} (<= 0.25 x {scale:.4g}) {'ok' if ok else 'FAILED'}; "
+          f"{time.time() - t0:.1f} s")
+    if not ok:
+        fail("K3's diffuse gradient against engine jax's")
+
+    # 19i. the drift of phase 12's configuration on engine jax (19e's run, seed 7) beside phase 18d's mega runs
+    n = len(rec["losses"])
+    mega = {seed: [json.loads((OUT / f"inverse_mega_s{seed}_n10_edges{e}.json").read_text())["losses"]
+                   for e in (0, 1)] for seed in (7, 11, 13)}
+    print(f"phase 12's configuration, seed 7: engine jax losses " + " ".join(f"{x:.6f}" for x in rec["losses"])
+          + f"; sphere offset {rec['offset'][0]:.4f} -> {rec['offset'][1]:.4f} after {n} steps; engine mega "
+          f"(10-step runs) without / with the edge term at step {n}, seeds 7, 11, 13: "
+          + ", ".join(f"{m[0][n - 1]:.6f} / {m[1][n - 1]:.6f}" for m in mega.values())
+          + "; at step 10: " + ", ".join(f"{m[0][-1]:.6f} / {m[1][-1]:.6f}" for m in mega.values()))
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -1691,6 +1927,10 @@ def main() -> int:
     t0 = time.time()
     edge_phases(dev, card)
     print(f"phase 18: {time.time() - t0:.1f} s")
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
+    budget_phases(dev, card, scenes)
+    print(f"phase 19: {time.time() - t0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

@@ -1,40 +1,48 @@
 """Inverse rendering: recover scene parameters from a target image by Adam on
-the gradients of the fused kernels.
+the gradients of a differentiable render.
 
 Port of ``kajo_tpu/diff/inverse.py`` (BASELINE.md config 4: recover sphere
-position, radius and albedo from a target render). Two engines, both built
-on the megakernel pass:
+position, radius and albedo from a target render). Three engines:
 
   * ``mega``: the render is ``megakernel_grad.make_diff_renderer``, K1
     forward and, in the backward, K3 for the colours and the background and
     K4 for sphere centres and radii (interior terms; visibility detached);
   * ``mega-fwd``: one forward-mode pass (K2) per optimised scalar and render,
     for the few scalars of a sphere's position (``param_mask`` picks them; at
-    most 64).
+    most 64);
+  * ``jax`` (the JAX package's name for it): the differentiable budget
+    engine ``models/wavefront.py:render_pass_budget`` under autograd, which
+    differentiates every scene tensor, the material fields K3/K4 do not take
+    (``specular_exponent``, ``refractive_index``, ``transparency``) too, on
+    dense scenes and, through K5 and the nearest hit's VJP, streamed ones.
 
-The loss is the two-sample cross-estimator mean((X1 - T)(X2 - T)) of two
-renders with independent seeds, whose expectation is (E[X] - T)^2: unlike
-the plain MSE of one noisy render it has no variance term pulling the
-optimum toward darker parameters. ``loss_clip`` clamps renders and target
-before comparing (HDR light pixels otherwise swamp the loss); ``mega-fwd``
-masks the tangents of clamped pixels the same way. The clamp is
-``minimum(maximum(x, 0), clip)``, whose derivative splits ties, as
-``jnp.clip``'s does.
+``auto`` takes ``mega`` on a CUDA scene that K3 (and, for geometry, K4)
+takes when every optimised parameter is one they differentiate, and ``jax``
+everywhere else.
+
+The loss (:func:`render_loss`) is the two-sample cross-estimator
+mean((X1 - T)(X2 - T)) of two renders with independent seeds, whose
+expectation is (E[X] - T)^2: unlike the plain MSE of one noisy render it has
+no variance term pulling the optimum toward darker parameters.
+``loss_clip`` clamps renders and target before comparing (HDR light pixels
+otherwise swamp the loss); ``mega-fwd`` masks the tangents of clamped pixels
+the same way. The clamp is ``minimum(maximum(x, 0), clip)``, whose
+derivative splits ties, as ``jnp.clip``'s does.
 
 Seeds are u32 integers: a step renders with two of them (the JAX step splits
 a threefry key in two; the port takes the seeds, by default
-``pass_seed(seed, 2 i)`` and ``pass_seed(seed, 2 i + 1)`` of step i).
+``pass_seed(seed, 2 i)`` and ``pass_seed(seed, 2 i + 1)`` of step i), so
+engines ``mega`` and ``jax`` render the same seeds at a step.
 
 ``edge_gradients`` (and ``shadow_edges``) add the boundary terms of
-``diff/edges.py`` on engine ``mega``: one zero-valued term, whose backward
-is the silhouette (and shadow) boundary gradient, is added to both renders,
-under a third key of its own (``CounterKey(seed).fold_in(i)`` of step i); a
-step without them keeps its two seeds and its bits. Engine
+``diff/edges.py`` on engines ``mega`` and ``jax``: one zero-valued term,
+whose backward is the silhouette (and shadow) boundary gradient, is added to
+both renders, under a third key of its own (``CounterKey(seed).fold_in(i)``
+of step i); a step without them keeps its two seeds and its bits. Engine
 ``mega-fwd`` refuses them (the JAX package ignores them there).
 
-Not ported yet (ROADMAP Queue 1): engine ``jax`` (the differentiable budget
-engine ``render_pass_budget``, item 3) and sharding over a ``mesh`` (item
-4). Asking for them raises NotImplementedError; nothing falls back.
+Not ported yet (ROADMAP Queue 1, item 2): sharding over a ``mesh``. Asking
+for it raises NotImplementedError; nothing falls back.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Any, Dict
 import torch
 
 from ..models.integrator import RenderConfig
+from ..models.wavefront import render_pass_budget
 from ..ops import megakernel_geom, megakernel_grad
 from ..ops.megakernel import render_pass_megakernel_jvp, scene_zero_tangent
 from ..ops.megakernel_grad import leaf, with_leaves
@@ -55,14 +64,14 @@ from .edges import make_silhouette_term
 
 # Parameters the fused backward kernels differentiate: colours through K3,
 # sphere geometry through K4. The other material fields (exponent, IOR,
-# transparency) wait for the budget engine.
+# transparency) take the budget engine, engine jax.
 MEGA_DIFF_PARAMS = frozenset({"diffuse", "specular", "emission"})
 MEGA_GEOM_PARAMS = frozenset({"sphere_transform", "sphere_radius"})
 
 # Leaves exposed to the optimizer by default (config 4: position/radius/albedo).
 DEFAULT_PARAM_SPEC = ("sphere_transform", "sphere_radius", "diffuse")
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 3: the budget engine and engine jax; item 4: the mesh)"
+NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 2: distribution, the mesh)"
 MAX_FWD_DIRECTIONS = 64
 
 
@@ -111,6 +120,31 @@ def cross_loss(i1: torch.Tensor, i2: torch.Tensor, target: torch.Tensor, loss_cl
     return torch.mean((i1 - t) * (i2 - t))
 
 
+def render_loss(params: Dict[str, torch.Tensor], scene: Scene, target: torch.Tensor, seed1: int, seed2: int,
+                width: int, height: int, spp: int, config: RenderConfig = RenderConfig(), mesh=None,
+                loss_clip=None, render=None, edge=None) -> torch.Tensor:
+    """The cross-estimator loss of two renders of ``scene`` (budget-engine
+    passes unless ``render`` is given) with ``params`` put in, with u32
+    seeds ``seed1`` and ``seed2`` (the JAX package splits a key into the
+    two), against ``target``; differentiable in ``params``.
+
+    Every engine's step but ``mega-fwd`` takes its loss here: ``render(scene,
+    seed)`` replaces the budget pass (engine ``mega`` gives its fused
+    renderer), and ``edge(scene)``, a zero-valued boundary term, is added to
+    both renders."""
+    if mesh is not None:
+        raise NotImplementedError(f"sharding an inverse render over a mesh {NOT_PORTED}")
+    updated = apply_params(scene, params)
+    if render is None:
+        def render(s, seed):
+            return render_pass_budget(s, seed, width, height, spp, config)
+    i1, i2 = render(updated, seed1), render(updated, seed2)
+    if edge is not None:
+        term = edge(updated)
+        i1, i2 = i1 + term, i2 + term
+    return cross_loss(i1, i2, target, loss_clip)
+
+
 @dataclasses.dataclass
 class InverseRenderer:
     """Adam loop recovering scene parameters from a target image."""
@@ -126,12 +160,13 @@ class InverseRenderer:
     param_spec: tuple = DEFAULT_PARAM_SPEC
     decay_steps: int = 0  # >0: cosine-decay the lr to 10% over this many steps
     # "auto": engine mega on a CUDA scene that K3 (and, for geometry, K4)
-    # takes, when every optimised parameter is one they differentiate
+    # takes, when every optimised parameter is one they differentiate; else
+    # engine jax, the budget engine
     engine: str = "auto"
     loss_clip: Any = None  # clamp render+target in the loss (HDR stability)
     # add the silhouette boundary term (diff/edges.py) to the renders'
     # backward: needed wherever a position or radius must be recovered
-    # through visibility changes (engine mega)
+    # through visibility changes (engines mega and jax)
     edge_gradients: bool = False
     n_edge: int = 256
     # also the NEE-visibility (shadow) boundary term: for a sphere recovered
@@ -155,28 +190,27 @@ class InverseRenderer:
                 and spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)
                 and (not geom or megakernel_geom.supports(self.scene, self.config))
             )
-            if not fused:
-                raise NotImplementedError(f"engine auto would take engine jax, which {NOT_PORTED}")
-            self.engine = "mega"
-        if self.engine == "jax":
-            raise NotImplementedError(f"engine jax {NOT_PORTED}")
-        if self.engine not in ("mega", "mega-fwd"):
+            self.engine = "mega" if fused else "jax"
+        if self.engine not in ("mega", "mega-fwd", "jax"):
             raise ValueError(f"unknown engine {self.engine!r}")
         edges = self.edge_gradients or self.shadow_edges
         if edges and self.engine == "mega-fwd":
-            raise ValueError("engine mega-fwd takes no boundary terms (edge_gradients, shadow_edges); use engine mega")
+            raise ValueError("engine mega-fwd takes no boundary terms (edge_gradients, shadow_edges); use engine mega or jax")
         if self.engine == "mega" and not spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS):
-            raise NotImplementedError(
+            raise ValueError(
                 f"engine mega differentiates {sorted(MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)}; "
-                f"{sorted(spec - MEGA_DIFF_PARAMS - MEGA_GEOM_PARAMS)} need engine jax, which {NOT_PORTED}"
+                f"{sorted(spec - MEGA_DIFF_PARAMS - MEGA_GEOM_PARAMS)} need engine jax"
             )
         self.target = self.target.to(self.scene.device)
         self.params = extract_params(self.scene, self.param_spec)
         self.opt, self.sched = make_adam(self.params, self.learning_rate, self.decay_steps)
         self.steps_done = 0
-        if self.engine == "mega":
-            self._render = megakernel_grad.make_diff_renderer(
-                self.width, self.height, self.spp, self.config, geometry=bool(geom)
+        if self.engine != "mega-fwd":
+            # None: render_loss's budget pass (engine jax)
+            self._render = (
+                megakernel_grad.make_diff_renderer(self.width, self.height, self.spp, self.config,
+                                                   geometry=bool(geom))
+                if self.engine == "mega" else None
             )
             self._edge_term = (
                 make_silhouette_term(self.width, self.height, self.config, self.n_edge, self.shadow_edges,
@@ -209,19 +243,19 @@ class InverseRenderer:
         ``seed2`` and its gradient -> (loss, {name: gradient}). With the
         boundary terms, ``edge_key`` (a u32 seed or a key) draws them and
         must be given."""
-        if self.engine == "mega":
+        if self.engine != "mega-fwd":
             if self._edge_term is not None and edge_key is None:
                 raise ValueError("the boundary terms (edge_gradients, shadow_edges) need an edge_key")
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            edge = None if self._edge_term is None else (lambda s: self._edge_term(s, edge_key))
             with torch.enable_grad():
-                updated = apply_params(self.scene, leaves)
-                i1, i2 = self._render(updated, seed1), self._render(updated, seed2)
-                if self._edge_term is not None:
-                    edge = self._edge_term(updated, edge_key)
-                    i1, i2 = i1 + edge, i2 + edge
-                loss = cross_loss(i1, i2, self.target, self.loss_clip)
-                grads = torch.autograd.grad(loss, list(leaves.values()))
-            return loss.detach(), dict(zip(leaves, grads))
+                loss = render_loss(leaves, self.scene, self.target, seed1, seed2, self.width, self.height,
+                                   self.spp, self.config, loss_clip=self.loss_clip, render=self._render, edge=edge)
+                # a tensor the render does not reach (transparency: only the
+                # detached branch probabilities read it) gets zeros, as in JAX
+                grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                                   for (k, v), g in zip(leaves.items(), grads)}
         return self._loss_and_grad_fwd(params, seed1, seed2)
 
     def _loss_and_grad_fwd(self, params, seed1, seed2):

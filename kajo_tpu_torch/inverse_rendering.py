@@ -1,7 +1,7 @@
 """Inverse rendering demo (BASELINE.md config 4), port of
 ``examples/inverse_rendering.py``.
 
-    python -m kajo_tpu_torch.inverse_rendering [--steps 100] [--engine mega|mega-fwd]
+    python -m kajo_tpu_torch.inverse_rendering [--steps 100] [--engine mega|mega-fwd|jax]
     python -m kajo_tpu_torch.inverse_rendering --device cpu -w 16 -h 12 --spp 4 --steps 4
 
 Perturbs the CLI's built-in scene (``build_test_scene``): the red Phong
@@ -12,16 +12,19 @@ sphere moves by (+0.2, 0, -0.1) and the ground's albedo becomes (0.2, 0.1,
 true scene at 64 spp (the JAX example's parity ``render_pass`` is not
 ported). Engine ``mega`` optimises every sphere's transform and every
 albedo (K1 forward, K3 and K4 backward), or the tensors ``--params`` names;
+engine ``jax`` the same tensors through the differentiable budget engine
+(``render_pass_budget`` under autograd; any scene tensor may be named);
 ``mega-fwd`` the three scalars of the sphere's translation (K2, one pass per
 scalar and render). ``--edge-gradients`` adds the silhouette boundary term
-of ``diff/edges.py`` to engine ``mega``'s renders.
+of ``diff/edges.py`` to engine ``mega``'s or ``jax``'s renders.
 
 Every ``--print-every`` steps it prints the loss, the sphere's offset from
 its true position and the ground's albedo error, and at the end how far
 each object's optimised entries moved; it writes the target, start and
 recovered PNGs (``--out-prefix``) and, with ``--summary``, a JSON record of
 the run: every loss, the offsets and errors at the start and the end, the
-moves, and the time per step (CUDA events on a GPU, else the host clock).
+moves, the optimised tensors at the end, and the time per step (CUDA
+events on a GPU, else the host clock).
 It runs on ``--device`` (``cuda`` by default; without a GPU it exits non-zero unless
 given ``--device cpu``, which runs the plain PyTorch versions).
 """
@@ -45,9 +48,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="kajo-torch-inverse", description=__doc__.split("\n\n")[0], add_help=False)
     p.add_argument("--help", action="help", help="show this help")
     p.add_argument("--steps", type=int, default=100)
-    p.add_argument("--engine", default="mega", choices=["mega", "mega-fwd"])
+    p.add_argument("--engine", default="mega", choices=["mega", "mega-fwd", "jax"])
     p.add_argument("--params", default="sphere_transform,diffuse",
-                   help="engine mega: the scene tensors to optimise, comma-separated")
+                   help="engines mega and jax: the scene tensors to optimise, comma-separated")
     p.add_argument("-w", dest="width", type=int, default=128)
     p.add_argument("-h", dest="height", type=int, default=96)
     p.add_argument("--spp", type=int, default=16)
@@ -55,7 +58,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--target-spp", type=int, default=64)
     p.add_argument("--seed", type=int, default=7, help="u32 seed of the steps' render seeds")
     p.add_argument("--edge-gradients", action="store_true",
-                   help="engine mega: add the silhouette boundary term to the gradients")
+                   help="engines mega and jax: add the silhouette boundary term to the gradients")
     p.add_argument("--device", default="cuda")
     p.add_argument("--print-every", type=int, default=20)
     p.add_argument("--out-prefix", default="inverse")
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
     wrong = apply_params(truth, {"sphere_transform": st, "diffuse": diffuse})
     save_png(f"{args.out_prefix}_start.png", render_pass_megakernel(wrong, 9, w, h, spp, config).cpu().numpy())
 
-    if args.engine == "mega":
+    if args.engine != "mega-fwd":
         kw = dict(param_spec=tuple(args.params.split(",")))
     else:
         mask = torch.zeros(st.shape, dtype=torch.bool)
@@ -157,6 +160,7 @@ def main(argv=None) -> int:
             json.dump(dict(engine=args.engine, edge_gradients=args.edge_gradients, params=list(inv.params),
                            steps=args.steps, losses=losses,
                            offset=[offset0, offset1], albedo_error=[albedo0, albedo1], drift=moved,
+                           tensors={k: v.detach().cpu().tolist() for k, v in inv.params.items()},
                            ms_per_step=ms_per_step, device=str(device)), f)
     return 0 if np.isfinite(losses).all() else 1
 

@@ -19,19 +19,32 @@ walk the image in ``TILE_TS``-square screen tiles, so the rays of one CTA
 are neighbours and cull the same sphere blocks.
 
 The JAX ``lax.while_loop`` is a Python loop here; its ``any()`` test reads
-one flag back from the device per iteration. The gradient engines
-(``render_lanes_budget``, ``render_pass_budget``) and the TPU tuning knobs
-(wavefront reordering, ray sorting) are not ported.
+one flag back from the device per iteration.
+
+The differentiable budget engine (``render_lanes_budget``,
+``render_pass_budget``) runs the same body a fixed
+``BUDGET_ITERS_PER_SAMPLE * eff_spp`` times, with no flag read back, one
+lane per pixel on dense and streamed scenes alike. Samples still in flight
+at the end are discarded and each pixel is divided by the samples it
+completed (a ratio estimator). Each iteration runs under
+``torch.utils.checkpoint`` (non-reentrant, which carries gradients to the
+prepared scene the body closes over), so the backward recomputes an
+iteration instead of keeping every iteration's graph. The branch
+probabilities (roulette, lottery) are detached, as in the JAX package. Its
+traces are differentiable on streamed scenes too, through the nearest
+hit's VJP (``ops/stream_trace.py``). The TPU tuning knobs (wavefront
+reordering, ray sorting) are not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import bsdf, lights, sampling
 from ..ops.geometry import PreparedScene, generate_rays, light_visible, prepare_scene, trace
-from ..ops.rng import pass_seed, uniforms4
+from ..ops.rng import as_key, pass_seed, uniforms4
 from ..scene.types import Scene
 from .integrator import RenderConfig
 
@@ -40,6 +53,8 @@ CAMERA_SALT = 0x7FFFFFFF
 LANE_MULT = 4
 # screen-tile edge of the lane -> pixel order on streamed scenes
 TILE_TS = 64
+# iterations of the budget engine per effective sample
+BUDGET_ITERS_PER_SAMPLE = 4
 
 
 def tiled_pixel_order(width: int, height: int) -> np.ndarray:
@@ -261,7 +276,7 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
             cont = torch.ones_like(on_path)
         else:
             p_rr = torch.max(torch.maximum(torch.maximum(mat["diffuse"], mat["specular"]), mat["transparency"]), -1).values
-            cont, prob_rr = sampling.flip_coin(us[0], p_rr)
+            cont, prob_rr = sampling.flip_coin(us[0], p_rr.detach())
             t = torch.where(on_path[:, None], t / prob_rr[:, None], t)
         t_kill = t
         emitter = on_path & ((depth == 0) if gl else state["emit"])
@@ -273,11 +288,11 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
         sum_t = torch.sum(mat["transparency"], -1)
         total = sum_d + sum_s + sum_t
         p_t = torch.where(total > 0, sum_t / torch.where(total == 0, 1.0, total), 0.0)
-        transmit, prob_t = sampling.flip_coin(us[1], p_t)
+        transmit, prob_t = sampling.flip_coin(us[1], p_t.detach())
         t = torch.where(survive[:, None], t / prob_t[:, None], t)
         ds = sum_d + sum_s
         p_d = torch.where(ds > 0, sum_d / torch.where(ds == 0, 1.0, ds), 0.0)
-        diff, prob_d = sampling.flip_coin(us[2], p_d)
+        diff, prob_d = sampling.flip_coin(us[2], p_d.detach())
         t = torch.where((survive & ~transmit)[:, None], t / prob_d[:, None], t)
 
         m_transmit = survive & transmit
@@ -431,3 +446,58 @@ def render_pass_fast_stats(scene: Scene, seed: int, width: int, height: int, spp
     iteration, plus the shadow rays of scattering lanes."""
     img, iters, rays = _pass(prepare_scene(scene), seed, width, height, spp, config)
     return img, iters, float(rays)
+
+
+def render_image_fast(scene: Scene, width: int, height: int, spp: int, key, passes: int = 1,
+                      config: RenderConfig = RenderConfig()) -> torch.Tensor:
+    """The mean of ``passes`` wavefront passes, the scene prepared once ->
+    [H, W, 4]. ``key`` is a u32 seed or a key (``ops/rng.py``); pass p
+    renders with ``key.fold_in(p).seed()``, as the JAX package's pass p
+    takes ``seed_from_key(fold_in(key, p))``."""
+    key = as_key(key)
+    prep = prepare_scene(scene)
+    total = torch.zeros((height, width, 4), dtype=torch.float32, device=scene.device)
+    for p in range(passes):
+        total = total + _pass(prep, key.fold_in(p).seed(), width, height, spp, config)[0]
+    return total / passes
+
+
+def render_lanes_budget(prep, lane, seed, width, height, eff_spp, grid, config, n_iters):
+    """The regenerating body run exactly ``n_iters`` times -> (radiance sums
+    of the completed samples [N, 3], completed samples [N]).
+
+    Samples still in flight at the end are discarded (their radiance never
+    reaches ``radiance``), so each lane's estimate stays unbiased per
+    completed sample; lanes complete slightly different counts. Each
+    iteration runs under a non-reentrant checkpoint (jax.checkpoint in the
+    JAX package), so the backward recomputes it instead of keeping its
+    graph: only the non-reentrant form carries gradients to the prepared
+    scene the body closes over."""
+    state, _, body = _make_loop(prep, lane, seed, width, height, eff_spp, grid, config)
+    for _ in range(n_iters):
+        state = checkpoint(body, state, use_reentrant=False, preserve_rng_state=False)
+    return state["radiance"], torch.clamp_max(state["sample"], eff_spp)
+
+
+def render_pass_budget(scene: Scene, seed: int, width: int, height: int, spp: int,
+                       config: RenderConfig = RenderConfig()) -> torch.Tensor:
+    """Differentiable wavefront pass with u32 pass seed ``seed`` -> [H, W, 4].
+
+    ``BUDGET_ITERS_PER_SAMPLE * eff_spp`` iterations, one lane per pixel (lane =
+    pixel, samples [0, eff_spp)); with Russian-roulette paths of 2-3
+    vertices they complete nearly every sample. Each pixel is divided by
+    max(completed, 1) times the spp quirk (spp / eff_spp with
+    ``kajo_spp_quirk``), so a pixel that completed all its samples equals
+    :func:`render_pass_fast`'s on a dense scene bit for bit."""
+    dev = scene.device
+    prep = prepare_scene(scene)
+    grid = max(int(spp**0.5), 1)
+    eff = grid * grid
+    quirk = float(spp if config.kajo_spp_quirk else eff) / eff
+    n = width * height
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    rgb, completed = render_lanes_budget(prep, lane, _seed_tensor(seed, dev), width, height, eff, grid, config,
+                                         BUDGET_ITERS_PER_SAMPLE * eff)
+    denom = torch.clamp_min(completed, 1).to(torch.float32) * quirk
+    img = torch.cat([rgb / denom[:, None], torch.ones((n, 1), dtype=torch.float32, device=dev)], 1)
+    return img.reshape(height, width, 4)

@@ -21,7 +21,8 @@ through a key: ``fold_in``, ``split`` and ``uniform``. :class:`CounterKey`
 is that key on PCG4D: a pure function of a u32 seed, the path of folds and
 splits, and the index of each element drawn, so a seed gives the same
 stream on the CPU and on the card. Any object with the same three methods
-serves (the tests hand in one that wraps a ``jax.random`` key).
+serves (the tests hand in one that wraps a ``jax.random`` key);
+``render_image_fast`` also asks a key for ``seed()``, its u32 pass seed.
 """
 
 from __future__ import annotations
@@ -105,6 +106,11 @@ class CounterKey:
 
     def split(self, n: int = 2) -> list:
         return [self._derive(i, _SPLIT_SALT) for i in range(n)]
+
+    def seed(self) -> int:
+        """The key as a u32 pass seed, by the JAX package's ``seed_from_key``
+        rule: the first word xor the last shifted left by one."""
+        return self.words[0] ^ ((self.words[1] << 1) & _M32)
 
     def uniform(self, shape, device) -> torch.Tensor:
         """float32 U[0, 1) of ``shape`` on ``device``, 24 bits each."""

@@ -29,6 +29,14 @@ decide per tile of rays which blocks the whole tile scans (see the section
 of the designs below); shadow rays of rigid scenes stay on K6 under every
 design, as in kajo_tpu.
 
+The nearest hit's t is differentiable (kajo_tpu's ``_nearest``
+``custom_vjp``): :func:`nearest_sphere` wraps whichever design answers in
+``_NearestHit``, whose backward (:func:`nearest_vjp`) recomputes each
+winner's t from its packed record with the same quadratic and pulls the
+cotangent back to the rays and the records, so gradients reach the
+spheres' transforms and radii through ``build_stream_scene``. The
+occlusion test has no gradient, as in kajo_tpu.
+
 The wrappers dispatch on the device of the rays: CPU tensors take the plain
 version, CUDA tensors launch the kernel (``csrc/stream_trace.cu``,
 ``stream_trace_v1.cu``, ``_v2.cu``, ``_v3.cu``, which share the device
@@ -47,7 +55,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .sampling import sqrt_f32
+from .sampling import safe_sqrt, sqrt_f32
 
 BIG = float(np.float32(3.0e38))
 BLOCK = 128     # spheres per block: one AABB each, one CTA-wide scan in the kernel
@@ -79,10 +87,6 @@ _scan_counts = None
 
 
 # ------------------------------------------------------ sphere quadratics
-def _safe_sqrt(x):
-    return sqrt_f32(torch.clamp_min(x, 0.0))
-
-
 def ray_terms(o, d):
     """The ray arguments of :func:`quadratic_rigid` for rays [N, 3] ->
     (o columns, d columns, d·o, o·o), each column and sum [N, 1], the sums
@@ -123,7 +127,10 @@ def quadratic_rigid(cx, cy, cz, r2, o, d, d_dot_o, o2):
 
 def rigid_roots(b, cq, discr):
     """The rigid quadratic's (t, valid) from its terms."""
-    sq = _safe_sqrt(discr)
+    # safe_sqrt, not the root of a clamp: 0 where discr <= 0 with a zero
+    # gradient, where the clamp's root has an infinite one (0 * inf = NaN in
+    # the backward of every sphere a ray misses)
+    sq = safe_sqrt(discr)
     q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
     t1 = cq / torch.where(q == 0, 1.0, q)
     lo = torch.minimum(q, t1)
@@ -161,7 +168,7 @@ def quadratic_general(rec, o, d):
 
 def general_roots(a, b, cq, discr, det):
     """The general quadratic's (t, valid, t_loc) from its terms and det."""
-    sq = _safe_sqrt(discr)
+    sq = safe_sqrt(discr)
     q = torch.where(b < 0, (-b - sq) * 0.5, (-b + sq) * 0.5)
     t0 = q / torch.where(a == 0, 1.0, a)
     t1 = cq / torch.where(q == 0, 1.0, q)
@@ -224,7 +231,7 @@ def build_stream_scene(prep):
     s = prep.sphere_center.shape[0]
     dev = prep.sphere_center.device
     perm = morton_order(prep.sphere_center)
-    radius = _safe_sqrt(prep.sphere_radius2)
+    radius = safe_sqrt(prep.sphere_radius2)
     if rigid:
         packed = torch.cat([prep.sphere_center, prep.sphere_radius2[:, None]], 1)[perm]
         ext = radius[perm][:, None].expand(s, 3)
@@ -851,13 +858,67 @@ def design_lists(design: str, o, d, bound, boxes) -> tuple:
     return ()
 
 
+def t_recompute(rigid: bool, rec, o, d):
+    """The hit distance of each ray [N, 3] on its own record [N, 4 | 14]
+    (kajo_tpu's ``_t_recompute``): the quadratic of the kernels, as a
+    differentiable function of the record and the ray."""
+    ot, dt = tuple(o.T), tuple(d.T)
+    if rigid:
+        d_dot_o = dt[0] * ot[0] + dt[1] * ot[1] + dt[2] * ot[2]
+        o2 = ot[0] * ot[0] + ot[1] * ot[1] + ot[2] * ot[2]
+        return quadratic_rigid(*rec.T, ot, dt, d_dot_o, o2)[0]
+    return quadratic_general(tuple(rec.T), ot, dt)[0]
+
+
+def nearest_vjp(rigid: bool, o, d, packed, idx, gt):
+    """The backward of the nearest hit's t (kajo_tpu's ``_nearest_bwd``):
+    the winner's t recomputed from its packed record, its cotangent ``gt``
+    (0 on a miss) pulled back -> (grad o, grad d, grad packed). A record's
+    gradient is the sum over the rays it won, by ``index_put_`` with
+    ``accumulate``, which on the card sorts the rows and adds each row's
+    terms in a fixed order (no float atomics), so a backward repeats bit
+    for bit."""
+    hit = idx >= 0
+    safe = idx.clamp_min(0).long()
+    with torch.enable_grad():
+        rec = packed[safe].detach().requires_grad_(True)
+        o_, d_ = o.detach().requires_grad_(True), d.detach().requires_grad_(True)
+        t = t_recompute(rigid, rec, o_, d_)
+        grec, go, gd = torch.autograd.grad(t, (rec, o_, d_), torch.where(hit, gt, 0.0))
+    gpacked = torch.zeros_like(packed).index_put_((safe,), torch.where(hit[:, None], grec, 0.0), accumulate=True)
+    return go, gd, gpacked
+
+
+class _NearestHit(torch.autograd.Function):
+    """The nearest hit (kajo_tpu's ``_nearest`` custom_vjp): the forward is
+    the design's answer, computed without a graph; the backward is
+    :func:`nearest_vjp`, to the rays and the packed records. The bound and
+    the boxes only gate the search: no gradient."""
+
+    @staticmethod
+    def forward(ctx, rigid, find, o, d, bound, packed, boxes):
+        t, idx = find(rigid, o, d, bound, packed, boxes)
+        ctx.rigid = rigid
+        ctx.save_for_backward(o, d, packed, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, gt, _gidx):
+        o, d, packed, idx = ctx.saved_tensors
+        go, gd, gpacked = nearest_vjp(ctx.rigid, o, d, packed, idx, gt)
+        return None, None, go, gd, None, gpacked, None
+
+
 def nearest_sphere(prep, o, d, t_max=None, design=None):
     """Streamed nearest-sphere hit for a prepared scene with a stream
     packing -> (t [N] with inf on miss, sphere index [N] in scene numbering,
     -1 on miss). ``t_max`` (per ray, optional) bounds the search. ``design``
     (one of DESIGNS) overrides NEAREST_DESIGN; CPU rays take the design's
     plain version, CUDA rays its kernel, with its block lists built on the
-    rays' device."""
+    rays' device. t is differentiable in ``o``, ``d`` and the packed
+    records (so in the spheres' transforms and radii), through
+    :class:`_NearestHit`."""
     design = _checked_design(NEAREST_DESIGN if design is None else design)
     n = o.shape[0]
     bound = o.new_full((n,), BIG) if t_max is None else torch.clamp_max(t_max.to(torch.float32), BIG)
@@ -871,8 +932,10 @@ def nearest_sphere(prep, o, d, t_max=None, design=None):
         "v2": (nearest_v2_plain, launch_nearest_v2), "v3": (nearest_v3_plain, launch_nearest_v3),
     }[design[:2]]
     # K5 takes the scene's superblocks; the plain K5 needs none
-    lists = (prep.stream_sboxes,) if design == "v4" and not cpu else design_lists(design, o, d, bound, boxes)
-    t, idx = (plain if cpu else launch)(prep.rigid, o, d, bound, packed, boxes, *lists)
+    with torch.no_grad():
+        lists = (prep.stream_sboxes,) if design == "v4" and not cpu else design_lists(design, o, d, bound, boxes)
+    find = plain if cpu else launch
+    t, idx = _NearestHit.apply(prep.rigid, lambda *a: find(*a, *lists), o, d, bound, packed, boxes)
     found = idx >= 0
     idx_orig = torch.where(found, prep.stream_perm[idx.clamp_min(0).long()], -1)
     return torch.where(found, t, float("inf")), idx_orig

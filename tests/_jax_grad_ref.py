@@ -7,7 +7,8 @@ Each job of JOBS.json names a kernel (``k2``
 ``render_pass_megakernel_jvp``, ``k3`` ``material_grads``, ``k4``
 ``geometry_grads``, ``loss`` the cross-estimator loss of an engine ``mega``
 step and its material gradients, with ``geometry`` its sphere gradients
-too), a scene
+too, ``render_loss`` the budget engine's ``diff/inverse.py:render_loss`` and
+its gradient with respect to the scene fields ``params``), a scene
 (``tests/torch_port.py:jax_grad_scene``), the image size, the RenderConfig
 fields and a PRNG key; k2 its tangents (entries of scene fields set to 1),
 k3/k4 a cotangent and ``loss`` a target (arrays of IN.npz); k4 may set
@@ -42,6 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_port import jax_grad_scene  # noqa: E402
 
+from kajo_tpu.diff.inverse import extract_params, render_loss  # noqa: E402
 from kajo_tpu.models.integrator import RenderConfig  # noqa: E402
 from kajo_tpu.ops.pallas import megakernel, megakernel_geom, megakernel_grad  # noqa: E402
 from kajo_tpu.ops.rng import seed_from_key  # noqa: E402
@@ -127,7 +129,15 @@ def main(inp, out, jobs_path):
         name = job["name"]
         result[f"{name}/seed"] = np.uint32(seed_from_key(key))
         with pltpu.force_tpu_interpret_mode():
-            if job["kind"] == "loss":
+            if job["kind"] == "render_loss":
+                value, grads = jax.value_and_grad(
+                    lambda p: render_loss(p, scene, arrays[job["target"]], key, w, h, spp, cfg,
+                                          loss_clip=job.get("loss_clip"))
+                )(extract_params(scene, tuple(job["params"])))
+                result[f"{name}/loss"] = np.asarray(value)
+                result.update({f"{name}/{k}": np.asarray(v) for k, v in grads.items()})
+                result[f"{name}/seeds"] = np.array([seed_from_key(k) for k in jax.random.split(key)], np.uint32)
+            elif job["kind"] == "loss":
                 result.update(cross_loss_grads(scene, key, arrays[job["target"]], job.get("loss_clip"), w, h, spp, cfg,
                                                name, job.get("geometry", False)))
             elif job["kind"] == "k2":

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 megakernel (K1, in both of its regimes), the streaming trace (K5 nearest hit, K6 occlusion, and the
 nearest-hit designs K7, K8, K9) and the gradient kernels (K2 forward mode, K3 material and K4 geometry gradients);
-and the parity engine and the boundary terms, which have no kernel of their own, on the card against the CPU.
+and the parity engine, the boundary terms and the budget engine (engine jax), which have no kernel of their own,
+on the card against the CPU.
 
 Needs a CUDA device, nvcc and no jax, so on a GPU machine run it without the
 JAX test configuration:
@@ -591,3 +592,114 @@ def test_boundary_grads_on_the_card_equal_the_cpu(device, kind):
         assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= 1e-3
         big = w.abs() > 0.01 * w.abs().max()
         assert torch.equal(torch.sign(g[big]), torch.sign(w[big]))
+
+
+def _streamed_field(device):
+    """A 1,500-sphere field (above STREAM_THRESHOLD: K5 traces it, K6 its
+    shadow rays)."""
+    scene = random_spheres_scene(1500, seed=21, extent=15.0, n_lights=2, aspect_ratio=W / H, device=device)
+    assert geometry.prepare_scene(scene).stream_packed is not None
+    return scene
+
+
+def test_streamed_budget_gradient_on_the_card_matches_dense(device, monkeypatch):
+    """Every radius's gradient through the budget engine on the card: on a
+    streamed scene K5 answers (never its plain version) and the nearest
+    hit's VJP runs on the card; against the same gradient through the dense
+    trace on the card (the same winners, so only the order of the sums
+    differs): relative L2 gap <= 1e-4. (Against the CPU the gradients part
+    by ~5% here: a few of the 768 lanes take other paths where CUDA's and
+    the CPU's transcendentals round apart.)"""
+    from kajo_tpu_torch.diff.inverse import apply_params
+
+    scene = _streamed_field(device)
+
+    def radius_grad():
+        r = scene.sphere_radius.clone().requires_grad_(True)
+        img = wavefront.render_pass_budget(apply_params(scene, {"sphere_radius": r}), 11, W, H, SPP,
+                                           RenderConfig(max_depth=2))
+        return torch.autograd.grad(img[..., :3].mean(), [r])[0]
+
+    with monkeypatch.context() as m:
+        m.setattr(stream_trace, "nearest_sphere_plain", lambda *a: pytest.fail("the card took plain K5"))
+        before = stream_trace.nearest_launches
+        got = radius_grad()
+        assert stream_trace.nearest_launches > before
+    monkeypatch.setattr(geometry, "STREAM_THRESHOLD", 10**9)
+    want = radius_grad()
+    assert torch.isfinite(got).all() and float(want.abs().max()) > 0
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-4
+
+
+def _budget_radius_grad(scene, mask=None):
+    """The budget image (32x24, 4 spp, depth 2, seed 11) and the gradient of
+    the mean of its pixels (those of ``mask`` only) with respect to every
+    radius, both on the CPU."""
+    from kajo_tpu_torch.diff.inverse import apply_params
+
+    r = scene.sphere_radius.clone().requires_grad_(True)
+    img = wavefront.render_pass_budget(apply_params(scene, {"sphere_radius": r}), 11, W, H, SPP,
+                                       RenderConfig(max_depth=2))[..., :3]
+    weight = 1.0 if mask is None else mask.to(img.device, torch.float32)[..., None]
+    (g,) = torch.autograd.grad((img * weight).mean(), [r])
+    return img.detach().cpu(), g.cpu()
+
+
+def test_budget_gradient_card_cpu_gap_is_not_the_vjp(device, monkeypatch):
+    """Why the test above holds the card's streamed gradient against the
+    card's dense one and not against the CPU. On the same field, on each
+    device, the streamed trace (K5 and the nearest hit's VJP) and the dense
+    trace (no VJP) give the same gradient within 1e-4, and the card-CPU gap
+    is the same on both traces within 1% of itself: so the gap does not come
+    from the VJP. A report, no bar: how many lanes (one a pixel) part in the
+    budget image by more than 1e-3 and 1e-5 relative, and the streamed
+    card-CPU gap with those pixels left out of the loss (``-s``)."""
+    scenes = {"cuda": _streamed_field(device), "cpu": _streamed_field(torch.device("cpu"))}
+
+    def runs(traces, mask=None):
+        out = {}
+        for trace in traces:
+            with monkeypatch.context() as m:
+                if trace == "dense":
+                    m.setattr(geometry, "STREAM_THRESHOLD", 10**9)
+                for dev, scene in scenes.items():
+                    out[trace, dev] = _budget_radius_grad(scene, mask)
+        return out
+
+    def gap(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    out = runs(("streamed", "dense"))
+    g = {k: v[1] for k, v in out.items()}
+    gaps = {t: gap(g[t, "cuda"], g[t, "cpu"]) for t in ("streamed", "dense")}
+    same = {dev: gap(g["streamed", dev], g["dense", dev]) for dev in scenes}
+    report = []
+    for rtol in (1e-3, 1e-5):
+        a, b = out["streamed", "cuda"][0], out["streamed", "cpu"][0]
+        parted = ((a - b).abs() > rtol * torch.clamp_min(b.abs(), 1.0)).any(-1)
+        kept = runs(("streamed",), ~parted)
+        report.append(f"{int(parted.sum())} of {W * H} lanes part by more than {rtol:g}, the streamed gap "
+                      f"without them {gap(kept['streamed', 'cuda'][1], kept['streamed', 'cpu'][1]):.3e}")
+    print(f"budget radius gradient card vs CPU: streamed {gaps['streamed']:.4e}, dense {gaps['dense']:.4e}; "
+          f"streamed vs dense on the card {same['cuda']:.3e}, on the CPU {same['cpu']:.3e}; " + "; ".join(report))
+    assert all(v <= 1e-4 for v in same.values()), same
+    assert abs(gaps["streamed"] - gaps["dense"]) <= 0.01 * gaps["dense"], gaps
+
+
+def test_jax_engine_repeats_bit_for_bit(device):
+    """Engine jax on a streamed scene (K5 forward, the VJP's sums backward)
+    and on a dense one: two runs of a few Adam steps give the same losses
+    and parameters, bit for bit (no float atomics on the path)."""
+    from kajo_tpu_torch.diff.inverse import InverseRenderer
+
+    for scene in (_streamed_field(device), parser.load(os.path.join(DATA, "caustics.json"), W / H, device)):
+        target = wavefront.render_pass_fast(scene, 1, W, H, 16, RenderConfig(max_depth=2))
+        runs = []
+        for _ in range(2):
+            inv = InverseRenderer(scene, target, W, H, spp=SPP, config=RenderConfig(max_depth=2), loss_clip=1.0,
+                                  param_spec=("sphere_transform", "sphere_radius", "diffuse"), engine="jax", seed=3)
+            losses = [inv.step() for _ in range(3)]
+            runs.append((losses, {k: v.detach().clone() for k, v in inv.params.items()}))
+        assert runs[0][0] == runs[1][0]
+        for k in runs[0][1]:
+            assert torch.equal(runs[0][1][k].view(torch.int32), runs[1][1][k].view(torch.int32)), k

@@ -18,15 +18,29 @@ inverse-rendering entry point, on the CPU (plain versions of K1-K4).
   * engine ``mega-fwd``'s gradient against central differences of the
     port's own loss with the same seeds (the pattern of
     ``test_inverse_mega_fwd_grads_match_fd``, rtol 0.05, atol 1e-5);
-  * what is not ported raises NotImplementedError naming its ROADMAP item;
-    engine ``mega-fwd`` refuses the boundary terms; on engine ``mega`` they
-    leave the loss's bits and add their gradient;
+  * what is not ported (the mesh) raises NotImplementedError naming its
+    ROADMAP item; engine ``mega-fwd`` refuses the boundary terms, engine
+    ``mega`` a parameter K3/K4 do not take; on engines ``mega`` and ``jax``
+    the boundary terms leave the loss's bits and add their gradient;
+  * engine ``jax`` (the budget engine): ``render_loss`` and its gradient
+    against kajo_tpu's ``render_loss`` under ``jax.jit``, the key split into
+    k1, k2 and the port given ``seed_from_key`` of each (bars: the loss to
+    rtol 1e-5, relative L2 gap <= 1e-3 per tensor); the IOR's gradient,
+    non-zero at 32x24 through the glass ball, against kajo_tpu's at the same
+    bars (its side in the SSE4.2 subprocess of ``tests/_jax_grad_ref.py``);
+    a step's gradient is ``render_loss``'s; ``auto`` takes it on the CPU;
+    and two 5-step fits at 16x16, the cheap versions of
+    ``tests/test_diff.py``'s albedo recovery and ``tests/test_edges.py``'s
+    cast-shadow recovery (the long fits run on the card, ``chip_smoke.py``
+    phase 19);
   * ``python -m kajo_tpu_torch.inverse_rendering --device cpu`` at a tiny
-    size, both engines.
+    size, every engine.
 """
 
+import dataclasses
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -191,19 +205,18 @@ def test_mega_fwd_grads_match_fd():
 @pytest.mark.parametrize(
     "kw,error,match",
     [
-        (dict(engine="jax"), NotImplementedError, "engine jax"),
-        (dict(engine="auto"), NotImplementedError, "engine auto"),
         (dict(engine="mega-fwd", edge_gradients=True), ValueError, "mega-fwd takes no boundary terms"),
         (dict(engine="mega-fwd", shadow_edges=True), ValueError, "mega-fwd takes no boundary terms"),
         (dict(mesh=object()), NotImplementedError, "mesh"),
-        (dict(engine="mega", param_spec=("refractive_index",)), NotImplementedError, "refractive_index"),
+        (dict(engine="mega", param_spec=("refractive_index",)), ValueError, r"refractive_index.*need engine jax"),
     ],
-    ids=["engine-jax", "auto-on-cpu", "edges", "shadow-edges", "mesh", "mega-ior"],
+    ids=["edges", "shadow-edges", "mesh", "mega-ior"],
 )
 def test_not_ported_raises(kw, error, match):
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item; the boundary terms, ported, are refused by engine mega-fwd alone
-    (the JAX package ignores them there)."""
+    """What is not ported (the mesh) raises NotImplementedError naming its
+    ROADMAP item; the boundary terms are refused by engine mega-fwd alone
+    (the JAX package ignores them there); engine mega refuses a parameter K3
+    and K4 do not differentiate, naming engine jax."""
     scene = _scene()
     with pytest.raises(error, match=match) as err:
         inverse.InverseRenderer(scene, torch.zeros((H, W, 4)), W, H, **kw)
@@ -244,7 +257,7 @@ def test_mega_fwd_direction_cap():
         )
 
 
-@pytest.mark.parametrize("engine", ["mega", "mega-fwd"])
+@pytest.mark.parametrize("engine", ["mega", "mega-fwd", "jax"])
 def test_entry_point_on_the_cpu(engine, tmp_path):
     summary = tmp_path / "run.json"
     rc = inverse_rendering.main(
@@ -255,3 +268,187 @@ def test_entry_point_on_the_cpu(engine, tmp_path):
     rec = json.loads(summary.read_text())
     assert rec["engine"] == engine and len(rec["losses"]) == 2 and np.isfinite(rec["losses"]).all()
     assert all((tmp_path / f"x_{k}.png").stat().st_size > 0 for k in ("target", "start", "recovered"))
+
+
+# engine jax: the budget engine, which also differentiates the material
+# fields K3/K4 do not take (caustics has a glass ball and Phong surfaces;
+# transparency reaches the render only through the detached branch
+# probabilities, so its gradient is 0 in both packages)
+JAX_SPEC = ("sphere_transform", "sphere_radius", "diffuse", "specular_exponent", "refractive_index", "transparency")
+
+
+@pytest.fixture(scope="module")
+def jax_render_loss():
+    """kajo_tpu's render_loss and its gradient under one jit, on caustics at
+    8x6, with its key's two halves as u32 seeds; and the port's."""
+    from kajo_tpu.diff.inverse import extract_params as jax_extract_params
+    from kajo_tpu.diff.inverse import render_loss
+    from kajo_tpu.models.integrator import RenderConfig as JaxRenderConfig
+    from kajo_tpu.ops.rng import seed_from_key
+
+    js = jax_grad_scene("caustics.json", W / H)
+    target = _target(to_port(js)).numpy()
+    key = jax.random.PRNGKey(8)
+    want_loss, want = jax.jit(jax.value_and_grad(
+        lambda p: render_loss(p, js, target, key, W, H, SPP, JaxRenderConfig(**CFG), loss_clip=CLIP)
+    ))(jax_extract_params(js, JAX_SPEC))
+    seeds = tuple(int(seed_from_key(k)) for k in jax.random.split(key))
+    scene = _scene()
+    leaves = {k: v.requires_grad_(True) for k, v in inverse.extract_params(scene, JAX_SPEC).items()}
+    loss = inverse.render_loss(leaves, scene, torch.tensor(target), *seeds, W, H, SPP, RenderConfig(**CFG),
+                               loss_clip=CLIP)
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    got = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(JAX_SPEC, got)}
+    return target, seeds, (loss.detach(), got), (float(want_loss), {k: np.asarray(v) for k, v in want.items()})
+
+
+def _jax_engine(target, **kw):
+    return inverse.InverseRenderer(_scene(), torch.tensor(target), W, H, spp=SPP, config=RenderConfig(**CFG),
+                                   param_spec=JAX_SPEC, engine="jax", loss_clip=CLIP, **kw)
+
+
+@pytest.mark.parametrize("name", JAX_SPEC)
+def test_render_loss_matches_jax(jax_render_loss, name):
+    _, _, (loss, got), (want_loss, want) = jax_render_loss
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+    g = got[name].numpy()
+    gap = rel_l2(g, want[name])
+    print(f"render_loss {name}: relative L2 gap {gap:.3e}, max |JAX| {np.abs(want[name]).max():.4g}")
+    assert g.shape == want[name].shape and np.isfinite(g).all()
+    # at 8x6 and 4 spp no path leaves the glass ball for a surface it lights
+    # within the depth: the IOR's gradient is 0 in both, as transparency's
+    if name in ("refractive_index", "transparency"):
+        assert not g.any() and not want[name].any()
+    else:
+        assert np.abs(want[name]).max() > 0 and gap <= 1e-3
+
+
+IOR_W, IOR_H = 32, 24
+
+
+@pytest.fixture(scope="module")
+def jax_ior_loss(tmp_path_factory):
+    """render_loss's gradient with respect to the IOR in both packages, on
+    caustics at 32x24, 4 spp, depth 3: at this size paths refract through
+    the glass ball onto a surface that NEE lights within the depth, so
+    kajo_tpu's gradient is non-zero (at 8x6 it is 0, see above). A lane
+    there crosses a branch when XLA fuses multiply-adds, so kajo_tpu's side
+    runs in the subprocess of ``tests/_jax_grad_ref.py`` (SSE4.2)."""
+    target = _target(_scene(w=IOR_W, h=IOR_H), IOR_W, IOR_H).numpy()
+    ref = jax_kernel_reference(
+        tmp_path_factory.mktemp("jax_ior"), "render_loss", {"caustics": ("caustics.json", CFG)}, IOR_W, IOR_H, SPP,
+        3, {"target": target}, target="target", loss_clip=CLIP, params=["refractive_index"],
+    )
+    scene = _scene(w=IOR_W, h=IOR_H)
+    ior = scene.materials.refractive_index.clone().requires_grad_(True)
+    loss = inverse.render_loss({"refractive_index": ior}, scene, torch.tensor(target),
+                               *(int(s) for s in ref["caustics/seeds"]), IOR_W, IOR_H, SPP, RenderConfig(**CFG),
+                               loss_clip=CLIP)
+    (got,) = torch.autograd.grad(loss, [ior])
+    return (float(loss), got.numpy()), (float(ref["caustics/loss"]), ref["caustics/refractive_index"])
+
+
+def test_render_loss_ior_gradient_matches_jax(jax_ior_loss):
+    """A gradient through refraction: the glass ball's IOR gets a non-zero
+    gradient in kajo_tpu, and the port's matches it."""
+    (loss, got), (want_loss, want) = jax_ior_loss
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    gap = rel_l2(got, want)
+    print(f"render_loss refractive_index at {IOR_W}x{IOR_H}: relative L2 gap {gap:.3e}, JAX {want}, port {got}")
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(want).max() > 0 and gap <= 1e-3
+
+
+def test_render_loss_refuses_a_mesh():
+    scene = _scene()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
+        inverse.render_loss(inverse.extract_params(scene), scene, torch.zeros((H, W, 4)), 1, 2, W, H, SPP,
+                            mesh=object())
+
+
+def test_jax_engine_step_is_render_loss(jax_render_loss):
+    """A step of engine jax takes render_loss's loss and gradient, bit for
+    bit, then moves every optimised tensor it has a gradient for."""
+    target, (seed1, seed2), (want_loss, want), _ = jax_render_loss
+    inv = _jax_engine(target)
+    loss, grads = inv.loss_and_grad(inv.params, seed1, seed2)
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(grads[k], want[k]) for k in JAX_SPEC)
+    before = {k: v.detach().clone() for k, v in inv.params.items()}
+    assert inv.step(seed1, seed2) == float(loss)
+    for k in JAX_SPEC:
+        assert torch.equal(before[k], inv.params[k].detach()) == (not grads[k].any()), k
+
+
+@pytest.mark.parametrize("kw", [{}, dict(edge_gradients=True)], ids=["plain", "edges"])
+def test_auto_takes_jax_on_the_cpu(kw):
+    inv = inverse.InverseRenderer(_scene(), torch.zeros((H, W, 4)), W, H, param_spec=("diffuse",), **kw)
+    assert inv.engine == "jax"
+
+
+@pytest.mark.parametrize("flag", ["edge_gradients", "shadow_edges"])
+def test_boundary_terms_run_on_jax_and_leave_the_loss(flag):
+    """As on engine mega: the term adds nothing to the loss, bit for bit, and
+    adds its gradient to the spheres' translations only."""
+    scene = _scene()
+    target = _target(scene)
+    kw = dict(spp=SPP, config=RenderConfig(**CFG), param_spec=("sphere_transform",), engine="jax", seed=5)
+    plain = inverse.InverseRenderer(scene, target, W, H, **kw)
+    edged = inverse.InverseRenderer(scene, target, W, H, **kw, **{flag: True}, n_edge=64, n_shadow_edge=2)
+    seed1, seed2 = pass_seed(5, 0), pass_seed(5, 1)
+    loss0, g0 = plain.loss_and_grad(plain.params, seed1, seed2)
+    loss1, g1 = edged.loss_and_grad(edged.params, seed1, seed2, CounterKey(5).fold_in(0))
+    assert torch.equal(loss0, loss1)
+    g0, g1 = g0["sphere_transform"], g1["sphere_transform"]
+    assert torch.isfinite(g1).all() and not torch.equal(g0[:, :3, 3], g1[:, :3, 3])
+    rest0, rest1 = g0.clone(), g1.clone()
+    rest0[:, :3, 3] = rest1[:, :3, 3] = 0
+    assert torch.equal(rest0, rest1)
+
+
+FIT = 16  # the short fits' image size
+
+
+def test_jax_fit_recovers_albedo():
+    """tests/test_diff.py's albedo recovery, 5 steps: the albedo moves from
+    (0.3, 0.6, 0.6) toward the truth (0.7, 0.4, 0.2). (Five losses say
+    nothing here: the emitter's silhouette, unclipped, swings the
+    cross-estimator by ~0.2 from one pair of seeds to the next.)"""
+    from kajo_tpu_torch.models.integrator import render_pass
+    from kajo_tpu_torch.scene.types import scene_from_numpy
+
+    from test_diff import _two_sphere_scene
+
+    scene = scene_from_numpy(dataclasses.asdict(jax.tree.map(np.asarray, _two_sphere_scene())), "cpu")
+    cfg = RenderConfig(max_depth=2)
+    target = render_pass(scene, 42, FIT, FIT, 4, cfg)
+    diffuse = scene.materials.diffuse.clone()
+    diffuse[0, :3] = torch.tensor([0.3, 0.6, 0.6])
+    inv = inverse.InverseRenderer(inverse.apply_params(scene, {"diffuse": diffuse}), target, FIT, FIT, spp=4,
+                                  config=cfg, learning_rate=1e-1, param_spec=("diffuse",), decay_steps=250, seed=7)
+    truth = torch.tensor([0.7, 0.4, 0.2])
+    err0 = float((diffuse[0, :3] - truth).abs().max())
+    losses = [inv.step() for _ in range(5)]
+    err = float((inv.params["diffuse"].detach()[0, :3] - truth).abs().max())
+    print(f"losses {losses}; albedo error {err0:.3f} -> {err:.3f}")
+    assert inv.engine == "jax" and np.isfinite(losses).all() and err < err0 - 0.25
+
+
+def test_jax_fit_recovers_cast_shadow():
+    """tests/test_edges.py's cast-shadow recovery (shadow_edges, engine
+    auto -> jax), 5 steps at 16x16, 4 spp: the occluder's x moves from 2.3
+    toward its true 2.0 by at least 0.1."""
+    from kajo_tpu_torch.models.integrator import render_image
+    from kajo_tpu_torch.scene.testscene import build_shadow_scene
+
+    cfg = RenderConfig(max_depth=1)
+    target = render_image(build_shadow_scene(2.0, "cpu"), FIT, FIT, 16, 7, passes=2, config=cfg)
+    inv = inverse.InverseRenderer(build_shadow_scene(2.3, "cpu"), target, FIT, FIT, spp=4, config=cfg,
+                                  param_spec=("sphere_transform",), shadow_edges=True, n_shadow_edge=8, n_edge=64,
+                                  learning_rate=3e-2, seed=9)
+    errs = []
+    for _ in range(5):
+        inv.step()
+        errs.append(abs(float(inv.params["sphere_transform"].detach()[0, 0, 3]) - 2.0))
+    print(f"|x - 2| by step: {errs}")
+    assert inv.engine == "jax" and errs[-1] < 0.2

@@ -127,8 +127,9 @@ def port_packed(scene, config=None):
 
 class JaxKey:
     """A ``jax.random`` key with the port's key API (``fold_in``, ``split``,
-    ``uniform``): the port's parity engine and boundary terms then draw the
-    JAX package's uniforms for the same key, handed over as numpy arrays."""
+    ``uniform``, ``seed``): the port's parity engine and boundary terms then
+    draw the JAX package's uniforms for the same key, handed over as numpy
+    arrays, and ``render_image_fast`` takes its ``seed_from_key``."""
 
     def __init__(self, key):
         self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
@@ -138,6 +139,9 @@ class JaxKey:
 
     def split(self, n=2):
         return [JaxKey(k) for k in jax.random.split(self.key, n)]
+
+    def seed(self):
+        return int(seed_from_key(self.key))
 
     def uniform(self, shape, device):
         return torch.from_numpy(np.array(jax.random.uniform(self.key, shape, dtype=np.float32))).to(device)
