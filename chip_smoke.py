@@ -160,7 +160,25 @@ with a non-zero exit when it fails:
    error below kajo_tpu's bar of 0.12; (h) K3's diffuse gradient on
    scaled.json against engine jax's, 6 seeds each with the JAX test's
    streams (tests/test_megakernel_grad.py: atol 0.25 max|jax|); (i) the
-   drift of (e)'s losses beside phase 18d's engine mega runs (a report).
+   drift of (e)'s losses beside phase 18d's engine mega runs (a report);
+20. distribution (kajo_tpu_torch/parallel/, no kernel of its own): (a) at
+   world size 1 over NCCL, K1 sharded at caustics 512x384, 16 spp equal to
+   the K1 pass bit for bit with one K1 launch, the wavefront sharded at
+   build_test_scene 128x96, 16 spp, depth 4 equal to render_pass_fast bit
+   for bit, and the object-sharded wavefront on config 5 within phase 3's
+   bars of the wavefront with one lane a pixel (its layout), with its K5
+   launches; K1 on the rank's lane block and K5 on its first DIST_HELD
+   calls on the rank's shard held against their plain versions bit for
+   bit, timed and bounded; (b) the same on 2 spawned processes sharing the
+   card over gloo with CUDA tensors (each rank's K5 on 50,000 spheres),
+   each rank's K1/K5 launches and ms a pass printed; (c) the CLI's --shard
+   (caustics 512x384, 16 spp, 4 passes: 4 K1 launches) and --shard-objects
+   (--procedural 100000 -w 128 -h 96 --spp 4 --depth 2, 2 passes: K5
+   launches), each a PNG of finite values with a positive mean, samples/s
+   printed; (d) torchrun --nproc_per_node 1 -m
+   kajo_tpu_torch.parallel.multihost data/caustics.json to a PNG; (e) three
+   InverseRenderer(mesh=...) steps at 64x48, 4 spp, depth 4 whose loss and
+   gradients equal the unsharded parity loss's bit for bit.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -206,7 +224,7 @@ rays and the results; K5's bound on the same call is printed beside it.
 Every line is flushed as it is printed, and a phase that stalls for
 STALL_S seconds dumps the Python stack of every thread and ends the run.
 
-Phases 17 to 19 run no kernel of their own and add nothing to the kernels
+Phases 17 to 20 run no kernel of their own and add nothing to the kernels
 line. The last two lines are the kernels' JSON record and {"ok": true,
 "device": ...}. Without a CUDA device it exits non-zero and prints no result.
 """
@@ -218,6 +236,7 @@ import dataclasses
 import faulthandler
 import io
 import json
+import os
 import re
 import struct
 import subprocess
@@ -1879,6 +1898,278 @@ def budget_phases(dev, card: str, scenes: dict) -> None:
           + "; at step 10: " + ", ".join(f"{m[0][-1]:.6f} / {m[1][-1]:.6f}" for m in mega.values()))
 
 
+DIST_SEED = 5  # the pass seed of phase 20's renders
+DIST_HELD = 3  # K5 calls of an object-sharded pass held against the plain K5 per rank
+
+
+def shard_checks(mesh, card: str, refs: dict | None = None) -> dict:
+    """Phases 20a/20b on one rank of ``mesh``: K1 sharded at the main path's
+    shape (caustics 512x384, 16 spp; one K1 launch a rank), the wavefront
+    sharded at build_test_scene 128x96, 16 spp, depth 4 (bits), and the
+    object-sharded wavefront on config 5 (the rank's K5 on its shard, the
+    MAD bar against the one-lane-a-pixel wavefront). ``refs`` None (world
+    size 1): the unsharded passes are rendered here and returned; else the
+    images are held against them -> the images (on the CPU) and counts."""
+    from kajo_tpu_torch.models import wavefront
+    from kajo_tpu_torch.models.integrator import RenderConfig
+    from kajo_tpu_torch.ops import megakernel
+    from kajo_tpu_torch.ops import stream_trace as st
+    from kajo_tpu_torch.parallel import objshard, render
+    from kajo_tpu_torch.scene import parser
+    from kajo_tpu_torch.scene.procedural import random_spheres_scene
+    from kajo_tpu_torch.scene.testscene import build_test_scene
+
+    dev, tag = mesh.device, f"rank {mesh.rank} of {mesh.size} ({'gloo' if refs else 'NCCL'})"
+    out, counts = {}, {}
+    cfg = RenderConfig()
+    caustics = parser.load(str(ROOT / "data" / "caustics.json"), MAIN_W / MAIN_H, dev)
+    megakernel.kernel_launches = 0
+    out["mega"] = render.render_pass_megakernel_sharded(caustics, DIST_SEED, MAIN_W, MAIN_H, MAIN_SPP, cfg, mesh)
+    torch.cuda.synchronize()
+    counts["k1"] = megakernel.kernel_launches
+    ms = timed(lambda: render.render_pass_megakernel_sharded(caustics, DIST_SEED, MAIN_W, MAIN_H, MAIN_SPP, cfg,
+                                                             mesh), 5)
+    want = refs["mega"].to(dev) if refs else megakernel.render_pass_megakernel(caustics, DIST_SEED, MAIN_W, MAIN_H,
+                                                                               MAIN_SPP, cfg)
+    same = torch.equal(out["mega"], want)
+    lo, hi, _ = render.lane_block(MAIN_W * MAIN_H, mesh)
+    print(f"20 {tag}: K1 sharded caustics {MAIN_W}x{MAIN_H} {MAIN_SPP}spp, lanes [{lo}, {hi}): K1 launches "
+          f"{counts['k1']}, {ms:.3f} ms a pass (CUDA events, gather included) on {card}; equals the unsharded K1 "
+          f"pass bit for bit: {same}")
+    if counts["k1"] != 1 or not same:
+        fail(f"20 {tag}: the K1-sharded pass")
+    # K1 at the rank's lane block: against its plain version, timed, bounded
+    n = MAIN_W * MAIN_H
+    ps = megakernel.prepare_pass(caustics, MAIN_W, MAIN_H, MAIN_SPP, cfg, min(lo, n), min(hi, n))
+    stats = {}
+    plain_ms = timed(lambda: stats.update(sums=megakernel.trace_lanes_plain(ps, DIST_SEED, stats)), 1)
+    kern = megakernel.launch_kernel(ps, DIST_SEED)
+    k_ms = timed(lambda: megakernel.launch_kernel(ps, DIST_SEED), 20)
+    bits = torch.equal(kern.view(torch.int32), stats.pop("sums").view(torch.int32))
+    (b_ms, by), _, _, _ = k1_bound(ps, stats)
+    counts.update(k1_ms=k_ms, k1_plain_ms=plain_ms, k1_bound_ms=b_ms, k1_bound_by=by, k1_lanes=ps.n_lanes)
+    print(f"20 {tag}: K1 on its block of {ps.n_lanes} lanes: {k_ms:.4f} ms a launch (CUDA events), plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({by}), {k_ms / b_ms:.0f}x; sums equal the plain version's bit "
+          f"for bit: {bits}")
+    if not bits:
+        fail(f"20 {tag}: K1 on a lane block against its plain version")
+
+    scene = build_test_scene(INV_W / INV_H, dev)
+    fcfg = RenderConfig(max_depth=INV_D)
+    out["fast"] = render.render_pass_fast_sharded(scene, DIST_SEED, INV_W, INV_H, INV_SPP, fcfg, mesh)
+    ms = timed(lambda: render.render_pass_fast_sharded(scene, DIST_SEED, INV_W, INV_H, INV_SPP, fcfg, mesh), 1)
+    want = refs["fast"].to(dev) if refs else wavefront.render_pass_fast(scene, DIST_SEED, INV_W, INV_H, INV_SPP, fcfg)
+    same = torch.equal(out["fast"], want)
+    print(f"20 {tag}: wavefront sharded build_test_scene {INV_W}x{INV_H} {INV_SPP}spp depth {INV_D}: "
+          f"{ms:.1f} ms a pass on {card}; equals render_pass_fast bit for bit: {same}")
+    if not same:
+        fail(f"20 {tag}: the lane-sharded wavefront")
+
+    big = random_spheres_scene(BIG_N, seed=0, extent=60.0, aspect_ratio=BIG_W / BIG_H, device=dev)
+    bcfg = RenderConfig(max_depth=BIG_D, one_light_nee=True)
+    objshard.render_pass_fast_objsharded(big, DIST_SEED, BIG_W, BIG_H, BIG_SPP, bcfg, mesh)  # warm-up
+    st.nearest_launches = st.occluded_launches = 0
+    calls = []
+    ms = timed(lambda: calls.extend(record_stream_calls(lambda: out.update(
+        obj=objshard.render_pass_fast_objsharded(big, DIST_SEED, BIG_W, BIG_H, BIG_SPP, bcfg, mesh)))[1]), 1)
+    counts["k5"], counts["k6"], counts["obj_ms"] = st.nearest_launches, st.occluded_launches, ms
+    # K5 on the rank's shard: its first DIST_HELD calls (the primary rays'
+    # nearest hit and shadow rays, then the first bounce) held, timed, bounded
+    rows = []
+    for i, (kind, args) in enumerate(calls[:DIST_HELD]):
+        t_k, t_p, idx, ok = kernel_vs_plain(kind, args)
+        k_ms = timed(lambda a=args: st.launch_nearest(*a), 20)
+        p_ms = timed(lambda a=args: st.nearest_sphere_plain(*a), 1)
+        b_ms, by = bound(*call_bound(kind, args, t_k))
+        rows.append((k_ms, p_ms, b_ms, by))
+        print(f"20 {tag}: K5 call {i} on the shard ({args[1].shape[0]} rays, {args[4].shape[0]} packed rows, "
+              f"{int((idx >= 0).sum())} hits): kernel == plain on every ray (bits) {ok}; {k_ms:.4f} ms (CUDA "
+              f"events), plain {p_ms:.1f} ms, bound {b_ms:.6f} ms ({by}), {k_ms / b_ms:.0f}x")
+        if kind != "nearest" or not ok:
+            fail(f"20 {tag}: K5 on the shard against its plain version (call {i}, {kind})")
+    counts.update(k5_ms=sum(r[0] for r in rows) / len(rows), k5_plain_ms=sum(r[1] for r in rows) / len(rows),
+                  k5_bound_ms=sum(r[2] for r in rows) / len(rows), k5_bound_by=rows[0][3])
+    if refs:
+        want = refs["fast1"].to(dev)
+    else:
+        want = out["fast1"] = render.render_pass_fast_sharded(big, DIST_SEED, BIG_W, BIG_H, BIG_SPP, bcfg, mesh)
+    differ = int((out["obj"] != want).any(-1).sum())
+    print(f"20 {tag}: object-sharded config 5 ({BIG_N} spheres, {-(-BIG_N // mesh.size)} a rank): K5 launches {counts['k5']}, "
+          f"K6 {counts['k6']}, {ms:.1f} ms a pass on {card}; {differ} of {BIG_W * BIG_H} pixels differ from the "
+          f"wavefront with one lane a pixel (K5 on the whole scene, K6 for shadows)")
+    compare(f"20 {tag}: object-sharded vs the one-lane-a-pixel wavefront, config 5", out["obj"], want)
+    if counts["k5"] == 0:
+        fail(f"20 {tag}: the object-sharded pass launched no K5")
+    if not refs:
+        lanes4 = wavefront.render_pass_fast(big, DIST_SEED, BIG_W, BIG_H, BIG_SPP, bcfg)
+        mad = (tm(out["obj"]) - tm(lanes4)).abs().mean().item()
+        print(f"20 {tag}: against render_pass_fast (LANE_MULT lanes a pixel, other streams; a report): "
+              f"tone-mapped MAD {mad:.3e}")
+    return {k: v.cpu() for k, v in out.items()}, counts
+
+
+def dist_rows(c: dict) -> str:
+    """Phase 20's K1-at-a-block and K5-at-a-shard numbers of one rank."""
+    return (f"K1 on {c['k1_lanes']} lanes {c['k1_ms']:.4f} ms a launch (plain {c['k1_plain_ms']:.1f}, bound "
+            f"{c['k1_bound_ms']:.5f} {c['k1_bound_by']}); K5 on the shard {c['k5_ms']:.4f} ms a call over the first "
+            f"{DIST_HELD} (plain {c['k5_plain_ms']:.1f}, bound {c['k5_bound_ms']:.6f} {c['k5_bound_by']})")
+
+
+def _two_rank_worker(rank: int, world: int, store: str, refs_path: str, out_path: str) -> None:
+    """Phase 20b's process: one rank of a gloo group whose ranks share the
+    card (NCCL refuses that), collectives on CUDA tensors."""
+    import torch.distributed as dist
+
+    from kajo_tpu_torch.parallel import render
+
+    sys.stdout.reconfigure(line_buffering=True)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        mesh = render.make_mesh(device="cuda")
+        _, counts = shard_checks(mesh, nvidia_smi(), torch.load(refs_path))
+        Path(out_path).write_text(json.dumps(counts))
+    finally:
+        dist.destroy_process_group()
+
+
+def distribution_phases(dev, card: str) -> None:
+    """Phase 20: distribution (kajo_tpu_torch/parallel/), no kernel of its
+    own: K1, K5 and K6 behind torch.distributed."""
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from kajo_tpu_torch import cli
+    from kajo_tpu_torch.diff import inverse
+    from kajo_tpu_torch.inverse_rendering import GROUND, GROUND_ALBEDO, SHIFT, SPHERE
+    from kajo_tpu_torch.models.integrator import RenderConfig, render_pass
+    from kajo_tpu_torch.ops import megakernel
+    from kajo_tpu_torch.ops import stream_trace as st
+    from kajo_tpu_torch.ops.rng import pass_seed
+    from kajo_tpu_torch.parallel import render
+    from kajo_tpu_torch.scene.testscene import build_test_scene
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    # 20a. world size 1 over NCCL
+    t0 = time.time()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        refs, counts = shard_checks(render.make_mesh(device=dev), card)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 20a: {time.time() - t0:.1f} s")
+
+    # 20b. two processes on the one card over gloo, CUDA tensors
+    t0 = time.time()
+    refs_path, store = OUT / "dist_refs.pt", OUT / "dist_store"
+    store.unlink(missing_ok=True)
+    torch.save(refs, refs_path)
+    ctx = multiprocessing.get_context("spawn")
+    outs = [OUT / f"dist_rank{r}.json" for r in range(2)]
+    for p in outs:
+        p.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_two_rank_worker, args=(r, 2, str(store), str(refs_path), str(outs[r])))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs) or not all(p.exists() for p in outs):
+        fail(f"20b: the two-process run on one card (exit codes {[p.exitcode for p in procs]})")
+    for r, p in enumerate(outs):
+        c = json.loads(p.read_text())
+        print(f"20b rank {r} of 2 (gloo, one card): K1 launches {c['k1']}, K5 launches {c['k5']} (K6 {c['k6']}) "
+              f"and {c['obj_ms']:.1f} ms a config-5 object-sharded pass on {card}; {dist_rows(c)}")
+    print(f"20a world 1 (NCCL): K5 launches {counts['k5']} (K6 {counts['k6']}) and {counts['obj_ms']:.1f} ms a "
+          f"config-5 object-sharded pass on {card}; {dist_rows(counts)}")
+    print(f"phase 20b: {time.time() - t0:.1f} s")
+
+    # 20c. the CLI's --shard and --shard-objects, as a group of one
+    t0 = time.time()
+    caustics = str(ROOT / "data" / "caustics.json")
+    runs = (
+        ("--shard", ["-w", str(MAIN_W), "-h", str(MAIN_H), "--spp", str(MAIN_SPP), "--passes", "4", caustics],
+         (MAIN_H, MAIN_W)),
+        ("--shard-objects", ["--procedural", str(BIG_N), "-w", str(BIG_W), "-h", str(BIG_H), "--spp", str(BIG_SPP),
+                             "--depth", str(BIG_D), "--passes", "2"], (BIG_H, BIG_W)),
+    )
+    for flag, args, shape in runs:
+        png = OUT / f"cli{flag}.png"
+        megakernel.kernel_launches = st.nearest_launches = st.occluded_launches = 0
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([flag, *args, "-o", str(png)])
+        launches = dict(k1=megakernel.kernel_launches, k5=st.nearest_launches, k6=st.occluded_launches)
+        rates = re.findall(r"([0-9.]+[KMG]?) samples/s", err.getvalue())
+        engine = [ln for ln in err.getvalue().splitlines() if ln.startswith("engine")]
+        pixels = read_png(png).astype(np.float64) if png.exists() else np.zeros(0)
+        print(f"20c cli {flag}: rc={rc}, {engine}, launches {launches}, samples/s per pass {rates} on {card}; png "
+              f"shape {pixels.shape}, mean {pixels[..., :3].mean() if pixels.size else float('nan'):.2f}")
+        ran = launches["k1"] == 4 if flag == "--shard" else launches["k5"] > 0
+        if rc != 0 or not ran or pixels.shape[:2] != shape or not np.isfinite(pixels).all() \
+                or not pixels[..., :3].mean() > 0:
+            fail(f"20c: the CLI with {flag}")
+    print(f"phase 20c: {time.time() - t0:.1f} s")
+
+    # 20d. multihost under torchrun
+    t0 = time.time()
+    png = OUT / "multihost.png"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "kajo_tpu_torch.parallel.multihost", caustics, "--out", str(png)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    pixels = read_png(png).astype(np.float64) if png.exists() else np.zeros(0)
+    print(f"20d torchrun --nproc_per_node 1 -m kajo_tpu_torch.parallel.multihost: rc={proc.returncode}, "
+          f"{proc.stdout.strip().splitlines()[-1:] } on {card}, png shape {pixels.shape} ({time.time() - t0:.1f} s)")
+    if proc.returncode != 0 or "samples/s" not in proc.stdout or pixels.shape[:2] != (480, 640) \
+            or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
+        print(proc.stderr[-3000:])
+        fail("20d: multihost under torchrun")
+
+    # 20e. InverseRenderer(mesh=...): three steps, gradients bit-equal to the
+    # unsharded parity loss's
+    t0 = time.time()
+    w, h, spp, cfg = 64, 48, 4, RenderConfig(max_depth=INV_D)
+    truth = build_test_scene(w / h, dev)
+    target = megakernel.render_pass_megakernel(truth, 123, w, h, 64, cfg)
+    st_wrong = truth.sphere_transform.clone()
+    for r, c, delta in SHIFT:
+        st_wrong[SPHERE, r, c] += delta
+    diffuse = truth.materials.diffuse.clone()
+    diffuse[GROUND, :3] = torch.tensor(GROUND_ALBEDO, device=dev)
+    wrong = inverse.apply_params(truth, {"sphere_transform": st_wrong, "diffuse": diffuse})
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        inv = inverse.InverseRenderer(wrong, target, w, h, spp=spp, config=cfg, learning_rate=2e-2, loss_clip=1.0,
+                                      mesh=render.make_mesh(device=dev), param_spec=("sphere_transform", "diffuse"),
+                                      seed=7)
+        megakernel.kernel_launches = 0
+        for i in range(3):
+            s1, s2 = pass_seed(7, 2 * i), pass_seed(7, 2 * i + 1)
+            loss, grads = inv.loss_and_grad(inv.params, s1, s2)
+            leaves = {k: v.detach().requires_grad_(True) for k, v in inv.params.items()}
+            want = inverse.render_loss(leaves, wrong, inv.target, s1, s2, w, h, spp, cfg, loss_clip=1.0,
+                                       render=lambda s, seed: render_pass(s, seed, w, h, spp, cfg))
+            want_g = torch.autograd.grad(want, list(leaves.values()))
+            same = torch.equal(loss, want.detach()) and all(torch.equal(grads[k], g) for k, g in zip(leaves, want_g))
+            step_ms = timed(inv.step, 1)
+            print(f"20e step {i}: loss {float(loss):.6f}, gradients and loss equal the unsharded parity loss's "
+                  f"bit for bit: {same}; {step_ms:.1f} ms a step (CUDA events) on {card}")
+            if not same or not torch.isfinite(loss):
+                fail("20e: InverseRenderer(mesh=...)'s gradients against the unsharded parity loss's")
+        print(f"20e: engine {inv.engine}, K1 launches in the steps {megakernel.kernel_launches} (the parity engine "
+              f"runs no kernel; the target is K1's)")
+        if inv.engine != "jax":
+            fail("20e: InverseRenderer(mesh=...) took another engine than jax")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 20e: {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -1931,6 +2222,10 @@ def main() -> int:
     t0 = time.time()
     budget_phases(dev, card, scenes)
     print(f"phase 19: {time.time() - t0:.1f} s")
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
+    distribution_phases(dev, card)
+    print(f"phase 20: {time.time() - t0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

@@ -19,11 +19,21 @@ passes, and can checkpoint and resume the progressive accumulation.
 
 Pass p uses the u32 seed ``ops.rng.pass_seed(--seed, p)``, so a resumed or
 batched render traces the same passes as an uninterrupted one.
+
+``--shard`` splits each pass's lanes over the ranks of a process group
+(``parallel/render.py``: K1, the wavefront or the parity engine on each
+rank's lanes); ``--shard-objects`` splits the spheres (``parallel/objshard.py``,
+the wavefront). Both run one pass a batch, under ``torchrun`` (one rank a
+card on CUDA, PyTorch's default backends) or alone, as a group of one
+process; rank 0 prints and saves. A caller whose ranks share a card
+initialises a gloo group before calling :func:`main`, which then renders
+in it. samples/s counts the samples rendered, whatever the world size.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -104,6 +114,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, help="progressive-state checkpoint file (.npz)")
     p.add_argument("--resume", action="store_true", help="resume from --checkpoint if present")
     p.add_argument("--preview", action="store_true", help="live ANSI preview in the terminal")
+    p.add_argument("--shard", action="store_true", help="split each pass's lanes over the process group's ranks")
+    p.add_argument(
+        "--shard-objects",
+        action="store_true",
+        help="split the spheres over the process group's ranks instead of the lanes (each rank stores and "
+        "traces its shard; nearest hits reduced over the group), for scenes too big for one device",
+    )
     return p
 
 
@@ -112,6 +129,38 @@ def main(argv=None) -> int:
 
     import torch
 
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(
+            f"error: --device {args.device} but PyTorch sees no CUDA device; "
+            "pass --device cpu to render with the plain PyTorch version",
+            file=sys.stderr,
+        )
+        return 2
+    if args.shard and args.shard_objects:
+        print("error: give --shard or --shard-objects, not both", file=sys.stderr)
+        return 2
+    mesh = None
+    if args.shard or args.shard_objects:
+        import torch.distributed as dist
+
+        from .parallel.multihost import ensure_group
+        from .parallel.render import make_mesh
+
+        created = ensure_group()
+        try:
+            mesh = make_mesh(device=device)
+            return _render(args, mesh.device, mesh)
+        finally:
+            if created:
+                dist.destroy_process_group()
+    return _render(args, device, mesh)
+
+
+def _render(args, device, mesh) -> int:
+    """The render of ``main``; ``mesh`` (a ``parallel.render.Mesh`` or None)
+    shards each pass, one pass a batch, and only its rank 0 prints and
+    saves."""
     from .models.engine import render_pass_engine, select_engine
     from .models.integrator import RenderConfig
     from .models.wavefront import render_passes_fast
@@ -125,14 +174,7 @@ def main(argv=None) -> int:
     from .utils.image import save_png
     from .utils.keys import CTRL_S, ESC, key_poller
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(
-            f"error: --device {args.device} but PyTorch sees no CUDA device; "
-            "pass --device cpu to render with the plain PyTorch version",
-            file=sys.stderr,
-        )
-        return 2
+    lead = mesh is None or mesh.rank == 0
 
     if args.procedural > 0 and args.scene:
         print("error: give either a scene file or --procedural, not both", file=sys.stderr)
@@ -213,10 +255,18 @@ def main(argv=None) -> int:
         requested = "parity"
     elif requested == "auto" and args.renderer == "gl":
         requested = "fast"  # the megakernel has no GL estimator
+    if args.shard_objects:
+        if requested not in ("auto", "fast"):
+            print(f"error: --shard-objects renders with the wavefront (engine fast), not {requested}", file=sys.stderr)
+            return 2
+        requested = "fast"
     engine = select_engine(scene, requested)
-    print(f"engine: {engine} on {device}", file=sys.stderr)
+    if lead:
+        sharding = " (objects sharded)" if args.shard_objects else " (lanes sharded)" if args.shard else ""
+        ranks = f" x {mesh.size} ranks" if mesh is not None else ""
+        print(f"engine: {engine}{sharding} on {device}{ranks}", file=sys.stderr)
     n_passes = args.passes if args.passes > 0 else 1 << 30
-    if engine == "parity":
+    if engine == "parity" or mesh is not None:
         batch = 1  # one scan per pass, as the JAX CLI runs it
     elif args.batch > 0:
         batch = args.batch
@@ -227,13 +277,27 @@ def main(argv=None) -> int:
     first = True
     last_save_bucket = start_pass // args.save_every if args.save_every else 0
 
+    # ranks of a sharded render must run the same passes: no keys past one rank
+    poller = key_poller() if mesh is None or mesh.size == 1 else contextlib.nullcontext(lambda: ())
     try:
-        with key_poller() as poll_keys:
+        with poller as poll_keys:
             p = start_pass
             while p < start_pass + n_passes:
                 t_pass = time.time()
                 nb = min(batch, start_pass + n_passes - p)
-                if nb > 1:
+                if args.shard_objects:
+                    from .parallel.objshard import render_pass_fast_objsharded
+
+                    pass_img = render_pass_fast_objsharded(
+                        scene, pass_seed(args.seed, p), args.width, args.height, args.spp, config, mesh
+                    )
+                elif args.shard:
+                    from .parallel.render import render_pass_sharded_engine
+
+                    pass_img = render_pass_sharded_engine(
+                        engine, scene, pass_seed(args.seed, p), args.width, args.height, args.spp, config, mesh
+                    )
+                elif nb > 1:
                     render_passes = render_passes_megakernel if engine == "mega" else render_passes_fast
                     pass_img = render_passes(scene, args.seed, p, args.width, args.height, args.spp, nb, config)
                 else:
@@ -243,6 +307,8 @@ def main(argv=None) -> int:
                 total += pass_img.cpu().numpy()
                 done = p + nb
                 p = done
+                if not lead:
+                    continue
                 pass_samples = nb * args.width * args.height * eff_spp
                 now = time.time()
                 rate = pass_samples / max(now - t_pass, 1e-9)
@@ -278,7 +344,7 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         print("interrupted, saving", file=sys.stderr)
 
-    if done > 0:
+    if done > 0 and lead:
         save_png(args.out, total / done)
         print(f"saved {args.out}", file=sys.stderr)
     return 0

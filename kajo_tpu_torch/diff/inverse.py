@@ -41,8 +41,15 @@ both renders, under a third key of its own (``CounterKey(seed).fold_in(i)``
 of step i); a step without them keeps its two seeds and its bits. Engine
 ``mega-fwd`` refuses them (the JAX package ignores them there).
 
-Not ported yet (ROADMAP Queue 1, item 2): sharding over a ``mesh``. Asking
-for it raises NotImplementedError; nothing falls back.
+Under a ``mesh`` (``parallel/render.py`` ``Mesh``), as in the JAX package,
+both renders are the sharded parity pass (``render_pass_sharded``): each
+rank renders and differentiates its own lanes, the images are gathered, and
+the parameters' gradients are summed over the ranks once
+(``parallel.render.sum_gradients``), so every rank takes the gradient of
+the whole image's loss and its Adam step leaves the same parameters.
+``InverseRenderer(mesh=...)`` takes engine ``jax`` (``auto`` resolves to
+it; the JAX package's rule refuses ``mega`` under a mesh) and no boundary
+term.
 """
 
 from __future__ import annotations
@@ -71,7 +78,6 @@ MEGA_GEOM_PARAMS = frozenset({"sphere_transform", "sphere_radius"})
 # Leaves exposed to the optimizer by default (config 4: position/radius/albedo).
 DEFAULT_PARAM_SPEC = ("sphere_transform", "sphere_radius", "diffuse")
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1, item 2: distribution, the mesh)"
 MAX_FWD_DIRECTIONS = 64
 
 
@@ -131,9 +137,12 @@ def render_loss(params: Dict[str, torch.Tensor], scene: Scene, target: torch.Ten
     Every engine's step but ``mega-fwd`` takes its loss here: ``render(scene,
     seed)`` replaces the budget pass (engine ``mega`` gives its fused
     renderer), and ``edge(scene)``, a zero-valued boundary term, is added to
-    both renders."""
+    both renders. Under a ``mesh`` both renders are the sharded parity pass,
+    and the gradient on every rank is the whole image's (see the module
+    docstring); it takes neither ``render`` nor ``edge``."""
     if mesh is not None:
-        raise NotImplementedError(f"sharding an inverse render over a mesh {NOT_PORTED}")
+        return _render_loss_sharded(params, scene, target, seed1, seed2, width, height, spp, config, mesh,
+                                    loss_clip, render, edge)
     updated = apply_params(scene, params)
     if render is None:
         def render(s, seed):
@@ -143,6 +152,31 @@ def render_loss(params: Dict[str, torch.Tensor], scene: Scene, target: torch.Ten
         term = edge(updated)
         i1, i2 = i1 + term, i2 + term
     return cross_loss(i1, i2, target, loss_clip)
+
+
+def _render_loss_sharded(params, scene, target, seed1, seed2, width, height, spp, config, mesh, loss_clip,
+                         render, edge):
+    from ..parallel.render import render_pass_sharded, sum_gradients
+
+    check_mesh(mesh)
+    if render is not None or edge is not None:
+        raise ValueError("under a mesh the loss renders the sharded parity pass: it takes no render and no edge term")
+    summed = sum_gradients(mesh, params)
+    updated = apply_params(scene, summed)
+    i1 = render_pass_sharded(updated, seed1, width, height, spp, config, mesh)
+    i2 = render_pass_sharded(updated, seed2, width, height, spp, config, mesh)
+    # + 0 * every parameter: each rank's backward must reach the one
+    # all_reduce of sum_gradients, whatever its lanes depend on
+    anchor = sum(p.sum() for p in summed.values()) * 0.0
+    return cross_loss(i1, i2, target, loss_clip) + anchor
+
+
+def check_mesh(mesh) -> None:
+    """Raise a TypeError unless ``mesh`` is None or a ``parallel.render.Mesh``."""
+    from ..parallel.render import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a kajo_tpu_torch.parallel.render.Mesh (make_mesh()), not {type(mesh).__name__}")
 
 
 @dataclasses.dataclass
@@ -179,13 +213,13 @@ class InverseRenderer:
     seed: int = 0  # u32 seed of the default per-step seeds
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(f"sharding an inverse render over a mesh {NOT_PORTED}")
+        check_mesh(self.mesh)
         spec = set(self.param_spec)
         geom = spec & MEGA_GEOM_PARAMS
         if self.engine == "auto":
             fused = (
-                self.scene.device.type == "cuda"
+                self.mesh is None
+                and self.scene.device.type == "cuda"
                 and megakernel_grad.supports(self.scene)
                 and spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS)
                 and (not geom or megakernel_geom.supports(self.scene, self.config))
@@ -194,6 +228,9 @@ class InverseRenderer:
         if self.engine not in ("mega", "mega-fwd", "jax"):
             raise ValueError(f"unknown engine {self.engine!r}")
         edges = self.edge_gradients or self.shadow_edges
+        if self.mesh is not None and (self.engine != "jax" or edges):
+            raise ValueError("under a mesh the inverse render takes engine jax (the sharded parity pass) and no "
+                             f"boundary term; got engine {self.engine!r}, edge terms {edges}")
         if edges and self.engine == "mega-fwd":
             raise ValueError("engine mega-fwd takes no boundary terms (edge_gradients, shadow_edges); use engine mega or jax")
         if self.engine == "mega" and not spec <= (MEGA_DIFF_PARAMS | MEGA_GEOM_PARAMS):
@@ -250,7 +287,8 @@ class InverseRenderer:
             edge = None if self._edge_term is None else (lambda s: self._edge_term(s, edge_key))
             with torch.enable_grad():
                 loss = render_loss(leaves, self.scene, self.target, seed1, seed2, self.width, self.height,
-                                   self.spp, self.config, loss_clip=self.loss_clip, render=self._render, edge=edge)
+                                   self.spp, self.config, mesh=self.mesh, loss_clip=self.loss_clip,
+                                   render=self._render, edge=edge)
                 # a tensor the render does not reach (transparency: only the
                 # detached branch probabilities read it) gets zeros, as in JAX
                 grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)

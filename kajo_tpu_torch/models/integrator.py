@@ -33,7 +33,7 @@ import torch
 
 from ..ops import bsdf, lights, sampling
 from ..ops.geometry import PreparedScene, generate_rays, prepare_scene, trace
-from ..ops.rng import as_key
+from ..ops.rng import as_key, uniform_columns
 from ..scene.types import Materials, Scene
 
 
@@ -160,9 +160,13 @@ def _nee_one_light(prep: PreparedScene, hit, mat, u_sel, u3, m_lambert, m_phong,
     return weight[:, None] * fcos * emission
 
 
-def render_samples(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor, key, config: RenderConfig) -> torch.Tensor:
+def render_samples(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor, key, config: RenderConfig,
+                   columns=None) -> torch.Tensor:
     """Path-trace one radiance sample per input ray -> [N, 4]. ``key`` is a
-    u32 seed or a key; bounce ``depth`` draws ``key.fold_in(depth)``."""
+    u32 seed or a key; bounce ``depth`` draws ``key.fold_in(depth)``.
+    ``columns`` = (lo, total): the rays are lanes lo .. lo + N - 1 of
+    ``total`` (a rank's block of a sharded pass), and draw those columns of
+    a draw over all ``total``."""
     key = as_key(key)
     n = o.shape[0]
     dev = o.device
@@ -193,7 +197,10 @@ def render_samples(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor, key, c
     for depth in range(config.max_depth + 1):
         if depth and not bool(alive.any()):
             break  # every path has ended: no later bounce adds anything
-        u = key.fold_in(depth).uniform((nu, n), dev)
+        if columns is None:
+            u = key.fold_in(depth).uniform((nu, n), dev)
+        else:
+            u = uniform_columns(key.fold_in(depth), (nu, columns[1]), columns[0], columns[0] + n, dev)
 
         hit = trace(prep, o_cur, d_cur)
         was_hit = hit.obj >= 0

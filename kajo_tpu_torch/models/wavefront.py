@@ -81,7 +81,7 @@ def _camera_ray(prep, lane, pix, sample, seed, width, height, grid):
     return generate_rays(prep.camera, sx, sy)
 
 
-def _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps):
+def _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps, trace_fn=trace):
     """NEE over every emissive sphere, RGB; ``u_l``: [3, N, L] uniforms."""
     num_l = prep.light_obj.shape[0]
     n = hit.position.shape[0]
@@ -117,13 +117,14 @@ def _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps):
         radius.expand(n, num_l).reshape(n * num_l),
         prep.light_obj[None, :].expand(n, num_l).reshape(n * num_l),
         needed.reshape(n * num_l),
+        trace_fn,
     ).reshape(n, num_l)
     ok = visible & not_self & (pdf_b != 0) & (pdf_l > 0)
     weight = torch.where(ok, 1.0 / (pdf_b + pdf_l), 0.0)
     return torch.sum(weight[..., None] * fcos * prep.light_emission[None, :, :3], 1)
 
 
-def _nee3_one_light(prep, hit, mat, u_sel, u3, m_lambert, m_phong, eps):
+def _nee3_one_light(prep, hit, mat, u_sel, u3, m_lambert, m_phong, eps, trace_fn=trace):
     """One-of-L NEE: one uniformly chosen light per lane, its term (with its
     own MIS weight 1/(pdf_b + pdf_l)) scaled by L; one shadow ray per
     vertex."""
@@ -149,7 +150,7 @@ def _nee3_one_light(prep, hit, mat, u_sel, u3, m_lambert, m_phong, eps):
         torch.where(m_phong[:, None], bsdf.phong_eval_cos(mat["specular"], hit.view, hit.normal, dir_l, exp), 0.0),
     )
     needed = not_self & (pdf_b != 0) & (pdf_l > 0) & (m_lambert | m_phong)
-    visible = light_visible(prep, pos + dir_l * eps, dir_l, center, radius, lobj, needed)
+    visible = light_visible(prep, pos + dir_l * eps, dir_l, center, radius, lobj, needed, trace_fn)
     ok = visible & not_self & (pdf_b != 0) & (pdf_l > 0)
     weight = torch.where(ok, num_l / (pdf_b + pdf_l), 0.0)
     return weight[:, None] * fcos * emission
@@ -166,7 +167,7 @@ def _light_pdf_for_hit3(prep, hit_obj, prev_obj, prev_pos):
 
 
 def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, config: RenderConfig, pix=None,
-               sample_lo=None, sample_hi=None):
+               sample_lo=None, sample_hi=None, trace_fn=trace):
     """(initial state, cond, body) of the regenerating wavefront.
 
     Radiance is split into ``radiance`` (completed samples, folded in at
@@ -174,7 +175,10 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
     samples [sample_lo, sample_hi) (default [0, eff_spp)): the lane
     multiplier splits a pixel's samples across lanes with distinct stream
     keys. ``iters`` counts iterations and ``rays`` live-lane traces (one
-    path ray per live lane, plus the shadow rays of scattering lanes)."""
+    path ray per live lane, plus the shadow rays of scattering lanes).
+    ``trace_fn`` (``trace``'s signature) answers every nearest hit; one
+    other than ``trace`` also answers the shadow rays (see
+    ``geometry.light_visible``)."""
     n = lane.shape[0]
     dev = lane.device
     pix = lane if pix is None else pix
@@ -242,7 +246,7 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
         # us[0] roulette, us[1] transmit coin, us[2] diffuse coin, us[3..4]
         # BSDF sample, us[5:5+3L] NEE
 
-        hit = trace(prep, state["o"], state["d"])
+        hit = trace_fn(prep, state["o"], state["d"])
         was_hit = hit.obj >= 0
         t = state["throughput"]
         r = state["r_cur"]
@@ -303,11 +307,12 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
 
         if config.direct_lighting and num_lights:
             if config.one_light_nee and num_lights > 1:
-                nee = _nee3_one_light(prep, hit, mat, us[5], (us[6], us[7], us[8]), m_lambert, m_phong, eps)
+                nee = _nee3_one_light(prep, hit, mat, us[5], (us[6], us[7], us[8]), m_lambert, m_phong, eps,
+                                      trace_fn)
             else:
                 # light l's k-th uniform is us[5 + k * L + l]
                 u_l = torch.stack(us[5 : 5 + 3 * num_lights]).reshape(3, num_lights, n).permute(0, 2, 1)
-                nee = _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps)
+                nee = _nee3(prep, hit, mat, u_l, m_lambert, m_phong, eps, trace_fn)
             r = r + torch.where(scatter[:, None], t * nee, 0.0)
 
         # continuation
@@ -370,10 +375,13 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
     return state, cond, body
 
 
-def render_lanes(prep, lane, seed, width, height, eff_spp, grid, config, pix=None, sample_lo=None, sample_hi=None):
+def render_lanes(prep, lane, seed, width, height, eff_spp, grid, config, pix=None, sample_lo=None, sample_hi=None,
+                 trace_fn=trace):
     """Run the wavefront until every lane has taken its samples ->
-    (radiance sums [N, 3], iterations, rays traced as a 0-d tensor)."""
-    state, cond, body = _make_loop(prep, lane, seed, width, height, eff_spp, grid, config, pix, sample_lo, sample_hi)
+    (radiance sums [N, 3], iterations, rays traced as a 0-d tensor).
+    ``trace_fn`` answers the nearest hits (``trace`` by default)."""
+    state, cond, body = _make_loop(prep, lane, seed, width, height, eff_spp, grid, config, pix, sample_lo, sample_hi,
+                                   trace_fn)
     while cond(state):
         state = body(state)
     return state["radiance"], state["iters"], state["rays"]

@@ -323,7 +323,7 @@ def trace(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor, t_max=None) -> 
     )
 
 
-def light_visible(prep: PreparedScene, o, d, center, radius, lobj, needed=None):
+def light_visible(prep: PreparedScene, o, d, center, radius, lobj, needed=None, trace_fn=None):
     """NEE visibility: does the nearest hit along (o, d) land on light
     ``lobj``? (``center``/``radius``/``lobj`` per ray: [M, 3], [M], [M].)
 
@@ -336,11 +336,14 @@ def light_visible(prep: PreparedScene, o, d, center, radius, lobj, needed=None):
     closed-form (the same quadratic, the same operand order and inputs as
     the kernel's), so visibility is "no plane at t <= t_light" (dense) and
     "no other sphere strictly below t_light" (K6, the light's own packed
-    index excluded, so it never occludes itself). Other scenes trace the
-    nearest hit, bounded by dist + radius + 1."""
-    if not (prep.stream_packed is not None and prep.rigid):
+    index excluded, so it never occludes itself). Other scenes, and a
+    ``trace_fn`` other than ``trace`` (the object-sharded trace of
+    ``parallel/objshard.py``), trace the nearest hit through it, bounded by
+    dist + radius + 1."""
+    trace_fn = trace if trace_fn is None else trace_fn
+    if trace_fn is not trace or not (prep.stream_packed is not None and prep.rigid):
         dist = torch.linalg.norm(center - o, dim=-1)
-        return trace(prep, o, d, t_max=dist + radius + 1.0).obj == lobj
+        return trace_fn(prep, o, d, t_max=dist + radius + 1.0).obj == lobj
 
     # one sphere per ray: [M, 1] columns against [M, 1] centers
     c = center[:, :, None]

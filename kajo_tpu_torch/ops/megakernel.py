@@ -163,10 +163,12 @@ class MegaPass:
     rigid: bool
     lane0: int
     config: RenderConfig
+    lane1: int | None = None  # end of the traced lanes (exclusive); None: W*H
 
     @property
     def n_lanes(self) -> int:
-        return self.width * self.height - self.lane0
+        end = self.width * self.height if self.lane1 is None else self.lane1
+        return end - self.lane0
 
     @property
     def divisor(self) -> float:
@@ -221,7 +223,9 @@ class MegaPass:
         )
 
 
-def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0) -> MegaPass:
+def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0, lane1=None) -> MegaPass:
+    """What a pass of lanes [lane0, lane1) (lane1 None: W*H) needs; an
+    empty range is a pass of no lanes."""
     if config.gl_semantics:
         raise ValueError(
             "gl_semantics is implemented by the wavefront (engine fast), not the fused megakernel"
@@ -230,8 +234,9 @@ def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0
         raise ValueError(
             f"the megakernel takes 1..{MAX_KERNEL_OBJECTS} objects, got {scene.num_objects}"
         )
-    if not 0 <= lane0 < width * height:
-        raise ValueError(f"lane0 {lane0} outside the image's {width * height} lanes")
+    end = width * height if lane1 is None else lane1
+    if not 0 <= lane0 <= end <= width * height:
+        raise ValueError(f"lanes [{lane0}, {end}) outside the image's {width * height} lanes")
     grid_n = max(int(spp**0.5), 1)
     prep = prepare_scene(scene)
     return MegaPass(
@@ -247,14 +252,15 @@ def prepare_pass(scene: Scene, width, height, spp, config: RenderConfig, lane0=0
         rigid=prep.rigid,
         lane0=lane0,
         config=config,
+        lane1=lane1,
     )
 
 
 def _image(ps: MegaPass, sums: torch.Tensor) -> torch.Tensor:
     """[3, n_lanes] RGB sums -> [H, W, 4] image divided by ``ps.divisor``,
-    alpha 1; the pixels before lane0 stay 0."""
+    alpha 1; the pixels outside [lane0, lane0 + n_lanes) stay 0."""
     img = torch.zeros((ps.width * ps.height, 4), dtype=torch.float32, device=sums.device)
-    img[ps.lane0 :, :3] = sums.T / sums.new_tensor(ps.divisor)
+    img[ps.lane0 : ps.lane0 + ps.n_lanes, :3] = sums.T / sums.new_tensor(ps.divisor)
     img[:, 3] = 1.0
     return img.reshape(ps.height, ps.width, 4)
 
@@ -299,7 +305,11 @@ def uses_kernel(device: torch.device) -> bool:
     raise ValueError(f"no megakernel for device {device}")
 
 
-def _sums(ps: MegaPass, seed: int) -> torch.Tensor:
+def lane_sums(ps: MegaPass, seed: int) -> torch.Tensor:
+    """The [3, n_lanes] RGB sums of the pass's lanes with u32 pass seed
+    ``seed``: one K1 launch on a CUDA scene, its plain version on a CPU one."""
+    if ps.n_lanes == 0:  # an empty lane block launches nothing
+        return torch.empty((3, 0), dtype=torch.float32, device=ps.packed.device)
     return launch_kernel(ps, seed) if uses_kernel(ps.packed.device) else trace_lanes_plain(ps, seed)
 
 
@@ -318,7 +328,7 @@ def render_pass_megakernel(
     (lane = pixel index, row-major); pixels before ``lane0`` stay 0, so a
     lane-sharded render assembles bit-identically to the whole one."""
     ps = prepare_pass(scene, width, height, spp, config, lane0)
-    return _image(ps, _sums(ps, seed))
+    return _image(ps, lane_sums(ps, seed))
 
 
 def render_pass_megakernel_plain(
@@ -351,7 +361,7 @@ def render_passes_megakernel(
     ps = prepare_pass(scene, width, height, spp, config)
     total = torch.zeros((height, width, 4), dtype=torch.float32, device=scene.device)
     for i in range(n_passes):
-        total += _image(ps, _sums(ps, pass_seed(seed, pass_offset + i)))
+        total += _image(ps, lane_sums(ps, pass_seed(seed, pass_offset + i)))
     return total
 
 

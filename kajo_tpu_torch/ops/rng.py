@@ -112,10 +112,26 @@ class CounterKey:
         rule: the first word xor the last shifted left by one."""
         return self.words[0] ^ ((self.words[1] << 1) & _M32)
 
-    def uniform(self, shape, device) -> torch.Tensor:
-        """float32 U[0, 1) of ``shape`` on ``device``, 24 bits each."""
-        e = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-        return unit(pcg4d(e & _M32, e >> 32, *self.words)[0]).reshape(shape)
+    def uniform(self, shape, device, columns=None) -> torch.Tensor:
+        """float32 U[0, 1) of ``shape`` on ``device``, 24 bits each; with
+        ``columns`` = (lo, hi), only columns lo .. hi - 1 of the last axis
+        of that draw (each element keeps its index in the whole draw)."""
+        if columns is None:
+            e = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+            return unit(pcg4d(e & _M32, e >> 32, *self.words)[0]).reshape(shape)
+        lo, hi = columns
+        rows = torch.arange(math.prod(shape[:-1]), dtype=torch.int64, device=device)
+        e = rows[:, None] * shape[-1] + torch.arange(lo, hi, dtype=torch.int64, device=device)[None, :]
+        return unit(pcg4d(e & _M32, e >> 32, *self.words)[0]).reshape(*shape[:-1], hi - lo)
+
+
+def uniform_columns(key, shape, lo: int, hi: int, device) -> torch.Tensor:
+    """Columns lo .. hi - 1 of the last axis of ``key.uniform(shape)``: a
+    rank's block of a draw over every lane. A :class:`CounterKey` draws
+    only those columns; another key draws the whole and slices it."""
+    if isinstance(key, CounterKey):
+        return key.uniform(shape, device, columns=(lo, hi))
+    return key.uniform(shape, device)[..., lo:hi]
 
 
 def as_key(seed_or_key):

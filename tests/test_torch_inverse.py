@@ -18,8 +18,9 @@ inverse-rendering entry point, on the CPU (plain versions of K1-K4).
   * engine ``mega-fwd``'s gradient against central differences of the
     port's own loss with the same seeds (the pattern of
     ``test_inverse_mega_fwd_grads_match_fd``, rtol 0.05, atol 1e-5);
-  * what is not ported (the mesh) raises NotImplementedError naming its
-    ROADMAP item; engine ``mega-fwd`` refuses the boundary terms, engine
+  * a mesh that is not a ``parallel.render.Mesh`` raises a TypeError naming
+    it (the mesh itself: ``tests/test_torch_parallel.py``); engine
+    ``mega-fwd`` refuses the boundary terms, engine
     ``mega`` a parameter K3/K4 do not take; on engines ``mega`` and ``jax``
     the boundary terms leave the loss's bits and add their gradient;
   * engine ``jax`` (the budget engine): ``render_loss`` and its gradient
@@ -207,21 +208,21 @@ def test_mega_fwd_grads_match_fd():
     [
         (dict(engine="mega-fwd", edge_gradients=True), ValueError, "mega-fwd takes no boundary terms"),
         (dict(engine="mega-fwd", shadow_edges=True), ValueError, "mega-fwd takes no boundary terms"),
-        (dict(mesh=object()), NotImplementedError, "mesh"),
+        (dict(mesh=object()), TypeError, "mesh must be a kajo_tpu_torch.parallel.render.Mesh.*not object"),
         (dict(engine="mega", param_spec=("refractive_index",)), ValueError, r"refractive_index.*need engine jax"),
     ],
     ids=["edges", "shadow-edges", "mesh", "mega-ior"],
 )
 def test_not_ported_raises(kw, error, match):
-    """What is not ported (the mesh) raises NotImplementedError naming its
-    ROADMAP item; the boundary terms are refused by engine mega-fwd alone
-    (the JAX package ignores them there); engine mega refuses a parameter K3
-    and K4 do not differentiate, naming engine jax."""
+    """What the inverse renderer refuses, each with its own error: a mesh
+    that is not a ``parallel.render.Mesh`` (the mesh is ported; this case,
+    which asserted the NotImplementedError of the unported mesh, keeps its
+    id and now asserts the TypeError naming the type); the boundary terms
+    on engine mega-fwd (the JAX package ignores them there); a parameter K3
+    and K4 do not differentiate on engine mega, naming engine jax."""
     scene = _scene()
-    with pytest.raises(error, match=match) as err:
+    with pytest.raises(error, match=match):
         inverse.InverseRenderer(scene, torch.zeros((H, W, 4)), W, H, **kw)
-    if error is NotImplementedError:
-        assert "ROADMAP Queue 1" in str(err.value)
 
 
 @pytest.mark.parametrize("flag", ["edge_gradients", "shadow_edges"])
@@ -360,8 +361,12 @@ def test_render_loss_ior_gradient_matches_jax(jax_ior_loss):
 
 
 def test_render_loss_refuses_a_mesh():
+    """render_loss refuses a mesh that is not a ``parallel.render.Mesh`` with
+    a TypeError naming it. (Before the mesh was ported, this test asserted
+    the NotImplementedError of any mesh; a real mesh is held in
+    tests/test_torch_parallel.py.)"""
     scene = _scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
+    with pytest.raises(TypeError, match="mesh must be a kajo_tpu_torch.parallel.render.Mesh.*not object"):
         inverse.render_loss(inverse.extract_params(scene), scene, torch.zeros((H, W, 4)), 1, 2, W, H, SPP,
                             mesh=object())
 
