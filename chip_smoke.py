@@ -178,7 +178,19 @@ with a non-zero exit when it fails:
    printed; (d) torchrun --nproc_per_node 1 -m
    kajo_tpu_torch.parallel.multihost data/caustics.json to a PNG; (e) three
    InverseRenderer(mesh=...) steps at 64x48, 4 spp, depth 4 whose loss and
-   gradients equal the unsharded parity loss's bit for bit.
+   gradients equal the unsharded parity loss's bit for bit;
+21. the CLI's --profile: (a) the main path of phase 5 for 8 passes (two
+   batches of 4) under --profile: exactly 8 K1 launches, by the counter and
+   by kernel name in the Chrome trace, the PNG as in phase 5, and the
+   device busy share of the profiled loop (the union of the kernels' and
+   copies' intervals over the span of the trace's events) and of each
+   batch (up to the end of its image's copy to the host), the first with
+   its warm-up and the second in steady state; (b) the big-scene path of
+   phase 8 for 2 passes under --profile: K5 and K6 in the trace by name,
+   as many as their counters say; (c) save_png of a K1 image at 512x384,
+   its tone map and its encoder: host ms, medians of 5 (a report).
+
+Every PNG is read back through kajo_tpu_torch.utils.image.load_png.
 
 Each kernel's bound is the larger of the bytes it must move over 3.35 TB/s
 and the FP32 operations it must do over 67 TFLOP/s (the H100 SXM's published
@@ -224,7 +236,7 @@ rays and the results; K5's bound on the same call is printed beside it.
 Every line is flushed as it is printed, and a phase that stalls for
 STALL_S seconds dumps the Python stack of every thread and ends the run.
 
-Phases 17 to 20 run no kernel of their own and add nothing to the kernels
+Phases 17 to 21 run no kernel of their own and add nothing to the kernels
 line. The last two lines are the kernels' JSON record and {"ok": true,
 "device": ...}. Without a CUDA device it exits non-zero and prints no result.
 """
@@ -238,16 +250,16 @@ import io
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from kajo_tpu_torch.utils.image import load_png
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
@@ -397,52 +409,6 @@ def first_occluder_block(rigid, o, d, t_cut, excl, packed, boxes) -> torch.Tenso
 
     st._block_scan(rigid, o, d, packed, boxes, visit)
     return first
-
-
-def read_png(path: Path) -> np.ndarray:
-    """Decode an 8-bit RGBA PNG (any filter) without third-party packages."""
-    data = path.read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{path} is not a PNG")
-    pos, idat, w = 8, b"", 0
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos : pos + 4])
-        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
-        if tag == b"IHDR":
-            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
-            if (depth, ctype) != (8, 6):
-                fail(f"{path}: not 8-bit RGBA")
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw, stride = zlib.decompress(idat), 4 * w
-    rows, prev = [], [0] * stride
-    for y in range(h):
-        f = raw[y * (stride + 1)]
-        line = raw[y * (stride + 1) + 1 : (y + 1) * (stride + 1)]
-        if f == 0:
-            out = list(line)
-        elif f == 2:
-            out = [(v + b) & 0xFF for v, b in zip(line, prev)]
-        elif f in (1, 3, 4):
-            out = [0] * stride
-            for x in range(stride):
-                a = out[x - 4] if x >= 4 else 0
-                b = prev[x]
-                c = prev[x - 4] if x >= 4 else 0
-                if f == 1:
-                    pred = a
-                elif f == 3:
-                    pred = (a + b) // 2
-                else:
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                out[x] = (line[x] + pred) & 0xFF
-        else:
-            fail(f"{path}: unknown PNG filter {f}")
-        rows.append(out)
-        prev = out
-    return np.array(rows, np.uint8).reshape(h, w, 4)
 
 
 # the stream trace's kernel wrappers, by the kind a recorded call carries
@@ -672,7 +638,7 @@ def megakernel_phases(dev, card: str) -> dict:
     print(f"main path: cli rc={rc}, kernel launches {mega_launches} for {passes} passes")
     if rc != 0 or mega_launches != passes:
         fail("the CLI's main path did not run one kernel launch per pass")
-    pixels = read_png(png).astype(np.float64)
+    pixels = load_png(str(png)).astype(np.float64)
     print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
     if pixels.shape != (384, 512, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
         fail("the main path's PNG")
@@ -815,7 +781,7 @@ def big_scene_phases(dev, card: str):
           f"K5 launches {k5_launches}, K6 launches {k6_launches}, K1 launches {megakernel.kernel_launches}")
     if rc != 0 or k5_launches == 0 or k6_launches == 0 or "engine: fast" not in err.getvalue():
         fail("the big-scene path did not run through engine fast with K5 and K6")
-    pixels = read_png(png).astype(np.float64)
+    pixels = load_png(str(png)).astype(np.float64)
     print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
     if pixels.shape != (BIG_H, BIG_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
         fail("the big-scene path's PNG")
@@ -1384,7 +1350,7 @@ def design_phases(dev, card: str, scenes: dict) -> list:
         if rc != 0 or counts[own] == 0 or not alone or counts["occluded_launches"] == 0:
             sys.stderr.write(err.getvalue())
             fail(f"the big-scene path under {design} did not run its kernel (and K6) alone")
-        pixels = read_png(png).astype(np.float64)
+        pixels = load_png(str(png)).astype(np.float64)
         print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
         if pixels.shape != (BIG_H, BIG_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
             fail(f"the big-scene path's PNG under {design}")
@@ -1534,7 +1500,7 @@ def parity_phases(dev, card: str, scenes: dict) -> None:
           f"K1 launches {megakernel.kernel_launches}")
     if rc != 0 or engine_lines != [f"engine: parity on {dev}"] or megakernel.kernel_launches != 0:
         fail("-r cpu did not run the parity engine (or launched K1)")
-    pixels = read_png(png).astype(np.float64)
+    pixels = load_png(str(png)).astype(np.float64)
     print(f"png {png.relative_to(ROOT)}: shape {pixels.shape}, mean {pixels[..., :3].mean():.2f}")
     if pixels.shape != (h, w, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
         fail("the parity path's PNG")
@@ -2106,7 +2072,7 @@ def distribution_phases(dev, card: str) -> None:
         launches = dict(k1=megakernel.kernel_launches, k5=st.nearest_launches, k6=st.occluded_launches)
         rates = re.findall(r"([0-9.]+[KMG]?) samples/s", err.getvalue())
         engine = [ln for ln in err.getvalue().splitlines() if ln.startswith("engine")]
-        pixels = read_png(png).astype(np.float64) if png.exists() else np.zeros(0)
+        pixels = load_png(str(png)).astype(np.float64) if png.exists() else np.zeros(0)
         print(f"20c cli {flag}: rc={rc}, {engine}, launches {launches}, samples/s per pass {rates} on {card}; png "
               f"shape {pixels.shape}, mean {pixels[..., :3].mean() if pixels.size else float('nan'):.2f}")
         ran = launches["k1"] == 4 if flag == "--shard" else launches["k5"] > 0
@@ -2122,7 +2088,7 @@ def distribution_phases(dev, card: str) -> None:
            "-m", "kajo_tpu_torch.parallel.multihost", caustics, "--out", str(png)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
                           env={**os.environ, "PYTHONPATH": str(ROOT)})
-    pixels = read_png(png).astype(np.float64) if png.exists() else np.zeros(0)
+    pixels = load_png(str(png)).astype(np.float64) if png.exists() else np.zeros(0)
     print(f"20d torchrun --nproc_per_node 1 -m kajo_tpu_torch.parallel.multihost: rc={proc.returncode}, "
           f"{proc.stdout.strip().splitlines()[-1:] } on {card}, png shape {pixels.shape} ({time.time() - t0:.1f} s)")
     if proc.returncode != 0 or "samples/s" not in proc.stdout or pixels.shape[:2] != (480, 640) \
@@ -2168,6 +2134,160 @@ def distribution_phases(dev, card: str) -> None:
     finally:
         dist.destroy_process_group()
     print(f"phase 20e: {time.time() - t0:.1f} s")
+
+
+# K1, K5 and K6 by their entry names in a profiler trace (csrc/megakernel.cu,
+# csrc/stream_trace.cu): K1 launches one of its two entries a pass
+TRACE_KERNELS = {"K1": re.compile(r"\bmegakernel_(lanes|items)\b"), "K5": re.compile(r"\bnearest_kernel\b"),
+                 "K6": re.compile(r"\boccluded_kernel\b")}
+
+
+def _busy_us(intervals, lo: float = float("-inf"), hi: float = float("inf")) -> float:
+    """The length of the union of the (start, end) intervals, clipped to
+    [lo, hi]."""
+    busy, end = 0.0, lo
+    for s, t in sorted(intervals):
+        s, t = max(s, end), min(t, hi)
+        if t > s:
+            busy += t - s
+            end = t
+    return busy
+
+
+def read_trace(path: Path, k1_per_batch: int = 0) -> dict:
+    """A Chrome trace of the CLI's --profile -> launches per kernel of
+    TRACE_KERNELS, device ms per kernel name, the device busy ms (the union
+    of the intervals of every kernel and copy on the card) and the window
+    ms (the span of every event in the trace). With k1_per_batch, also the
+    (window ms, busy ms) of each batch of that many K1 launches: from the
+    end of the previous batch's last copy to the host (the trace's first
+    event for the first batch) to the end of its own."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    per_name = {}
+    for e in device:
+        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    launches = {k: sum(1 for e in device if e["cat"] == "kernel" and pat.search(e["name"]))
+                for k, pat in TRACE_KERNELS.items()}
+    intervals = [(e["ts"], e["ts"] + e["dur"]) for e in device]
+    first = min(e["ts"] for e in events)
+    window_us = max(e["ts"] + e["dur"] for e in events) - first
+    batches = []
+    if k1_per_batch:
+        k1 = sorted(e["ts"] for e in device if e["cat"] == "kernel" and TRACE_KERNELS["K1"].search(e["name"]))
+        to_host = sorted(e["ts"] + e["dur"] for e in device if e["cat"] == "gpu_memcpy" and "DtoH" in e["name"])
+        nexts = k1[k1_per_batch::k1_per_batch] + [float("inf")]
+        lo = first
+        for nxt in nexts:
+            hi = max((t for t in to_host if lo < t < nxt), default=None)
+            if hi is None:
+                break
+            batches.append(((hi - lo) / 1e3, _busy_us(intervals, lo, hi) / 1e3))
+            lo = hi
+    return dict(launches=launches, per_name=per_name, busy_ms=_busy_us(intervals) / 1e3,
+                window_ms=window_us / 1e3, batches=batches)
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """The median host ms of reps calls of fn() (host work, no device)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+PROFILE_PASSES, PROFILE_BATCH = 8, 4  # two of the CLI's batches: the first with its warm-up, then steady state
+
+
+def profile_phases(dev, card: str) -> None:
+    """Phase 21: the CLI's --profile through K1, K5 and K6, and the host's
+    PNG save after the loop."""
+    from kajo_tpu_torch import cli
+    from kajo_tpu_torch.ops import megakernel
+    from kajo_tpu_torch.ops import stream_trace as st
+    from kajo_tpu_torch.scene import parser
+    from kajo_tpu_torch.utils import image
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    caustics = str(ROOT / "data" / "caustics.json")
+
+    # 21a. the CLI main path under --profile: K1 by name in the trace, and
+    # the busy share of each batch
+    prof_dir, png = OUT / "profile_main", OUT / "profile_main.png"
+    megakernel.kernel_launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["-w", str(MAIN_W), "-h", str(MAIN_H), "--spp", str(MAIN_SPP), "--passes", str(PROFILE_PASSES),
+                       "--batch", str(PROFILE_BATCH), caustics, "-o", str(png), "--profile", str(prof_dir)])
+    cli_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    trace_path = prof_dir / "trace.json"
+    if rc != 0 or not trace_path.exists():
+        fail(f"21a: the profiled main path (rc={rc}) wrote no {trace_path.relative_to(ROOT)}")
+    tr = read_trace(trace_path, PROFILE_BATCH)
+    pixels = load_png(str(png)).astype(np.float64) if png.exists() else np.zeros(0)
+    top = sorted(tr["per_name"].items(), key=lambda kv: -kv[1])[:4]
+    print(f"21a cli --profile (caustics {MAIN_W}x{MAIN_H}, {MAIN_SPP} spp, {PROFILE_PASSES} passes in batches of "
+          f"{PROFILE_BATCH}) on {card}: rc={rc} in {cli_s:.2f} s, K1 launches {megakernel.kernel_launches} "
+          f"(counter), {tr['launches']['K1']} (trace, by name); trace {trace_path.stat().st_size} B, window "
+          f"{tr['window_ms']:.3f} ms, device busy {tr['busy_ms']:.3f} ms "
+          f"({100 * tr['busy_ms'] / tr['window_ms']:.1f}%); device ms by name "
+          f"{[(name[:40], round(ms, 3)) for name, ms in top]}")
+    batch_samples = PROFILE_BATCH * MAIN_W * MAIN_H * MAIN_SPP
+    for i, (window, busy) in enumerate(tr["batches"]):
+        print(f"21a batch {i + 1} ({'first, with its warm-up' if i == 0 else 'steady state'}) on {card}: window "
+              f"{window:.3f} ms, device busy {busy:.3f} ms ({100 * busy / window:.1f}%, host share "
+              f"{100 - 100 * busy / window:.1f}%), {batch_samples / window / 1e6:.3f} G samples/s")
+    print(f"21a png {png.relative_to(ROOT)}: shape {pixels.shape}, mean "
+          f"{pixels[..., :3].mean() if pixels.size else float('nan'):.2f}")
+    if megakernel.kernel_launches != PROFILE_PASSES or tr["launches"]["K1"] != PROFILE_PASSES \
+            or f"profile trace in {prof_dir}" not in err.getvalue():
+        fail(f"21a: the profiled main path's trace does not hold {PROFILE_PASSES} K1 launches")
+    if len(tr["batches"]) != PROFILE_PASSES // PROFILE_BATCH:
+        fail(f"21a: {len(tr['batches'])} batches found in the trace, not {PROFILE_PASSES // PROFILE_BATCH}")
+    if pixels.shape != (MAIN_H, MAIN_W, 4) or not np.isfinite(pixels).all() or not pixels[..., :3].mean() > 0:
+        fail("21a: the profiled main path's PNG")
+
+    # 21b. the big scene under --profile: K5 and K6 by name in the trace
+    prof_dir, png = OUT / "profile_big", OUT / "profile_big.png"
+    st.nearest_launches = st.occluded_launches = 0
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--procedural", str(BIG_N), "-w", str(BIG_W), "-h", str(BIG_H), "--spp", str(BIG_SPP),
+                       "--depth", str(BIG_D), "--passes", "2", "-o", str(png), "--profile", str(prof_dir)])
+    cli_s = time.perf_counter() - t0
+    trace_path = prof_dir / "trace.json"
+    if rc != 0 or not trace_path.exists():
+        sys.stderr.write(err.getvalue())
+        fail(f"21b: the profiled big scene (rc={rc}) wrote no {trace_path.relative_to(ROOT)}")
+    tr = read_trace(trace_path)
+    counted = dict(K5=st.nearest_launches, K6=st.occluded_launches)
+    print(f"21b cli --procedural {BIG_N} --profile ({BIG_W}x{BIG_H}, {BIG_SPP} spp, depth {BIG_D}, 2 passes) on "
+          f"{card}: rc={rc} in {cli_s:.2f} s (scene build included), launches {counted} (counters), "
+          f"{ {k: tr['launches'][k] for k in counted} } (trace, by name); window {tr['window_ms']:.3f} ms, "
+          f"device busy {tr['busy_ms']:.3f} ms ({100 * tr['busy_ms'] / tr['window_ms']:.1f}%)")
+    if not all(counted[k] > 0 and tr["launches"][k] == counted[k] for k in counted):
+        sys.stderr.write(err.getvalue())
+        fail("21b: the big scene's trace does not hold K5 and K6 as launched")
+
+    # 21c. the PNG the CLI saves after its loop, at the main path's size
+    # (median of 5 each): the whole save, its tone map, its encoder
+    scene = parser.load(caustics, MAIN_W / MAIN_H, dev)
+    hdr = (megakernel.render_passes_megakernel(scene, 5, 0, MAIN_W, MAIN_H, MAIN_SPP, 4) / 4).cpu().numpy()
+    out = OUT / "save.png"
+    rgba8 = image.tonemap(hdr)
+    t_save = median_ms(lambda: image.save_png(str(out), hdr))
+    t_tonemap = median_ms(lambda: image.tonemap(hdr))
+    t_encode = median_ms(lambda: image.encode_png(rgba8))
+    back = load_png(str(out))
+    print(f"21c save_png at {MAIN_W}x{MAIN_H} on {card}'s host: {t_save:.3f} ms (tone map {t_tonemap:.3f} ms, "
+          f"encoder {t_encode:.3f} ms; medians of 5); read back equal: {np.array_equal(back, rgba8)}")
+    if not np.array_equal(back, rgba8):
+        fail("21c: the saved PNG does not read back as its tone map")
 
 
 def main() -> int:
@@ -2226,6 +2346,10 @@ def main() -> int:
     t0 = time.time()
     distribution_phases(dev, card)
     print(f"phase 20: {time.time() - t0:.1f} s")
+    faulthandler.dump_traceback_later(STALL_S, exit=True)
+    t0 = time.time()
+    profile_phases(dev, card)
+    print(f"phase 21: {time.time() - t0:.1f} s")
     faulthandler.cancel_dump_traceback_later()
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kajo_tpu"))

@@ -27,13 +27,22 @@ the wavefront). Both run one pass a batch, under ``torchrun`` (one rank a
 card on CUDA, PyTorch's default backends) or alone, as a group of one
 process; rank 0 prints and saves. A caller whose ranks share a card
 initialises a gloo group before calling :func:`main`, which then renders
-in it. samples/s counts the samples rendered, whatever the world size.
+in it. samples/s counts the samples rendered, whatever the world size; a
+group of several ranks also prints the rate per rank, ``[N ranks x
+R/rank]``.
+
+``--profile DIR`` records the render loop, from the engine's choice to the
+last pass, with ``torch.profiler`` (the CPU, and the CUDA kernels on a GPU,
+under their kernel names) and writes it to DIR as a Chrome trace JSON,
+``trace.json``, or ``trace.rank<R>.json`` on each rank of a sharded render.
+Open it in Perfetto (ui.perfetto.dev) or chrome://tracing.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
@@ -120,6 +129,14 @@ def build_argparser() -> argparse.ArgumentParser:
         action="store_true",
         help="split the spheres over the process group's ranks instead of the lanes (each rank stores and "
         "traces its shard; nearest hits reduced over the group), for scenes too big for one device",
+    )
+    p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="write a torch.profiler trace of the render loop (CPU, and CUDA kernels on a GPU) to DIR as a Chrome "
+        "trace JSON (trace.json; trace.rank<R>.json per rank when sharded); with --passes 0 it keeps every "
+        "event until Ctrl-C",
     )
     return p
 
@@ -265,6 +282,14 @@ def _render(args, device, mesh) -> int:
         sharding = " (objects sharded)" if args.shard_objects else " (lanes sharded)" if args.shard else ""
         ranks = f" x {mesh.size} ranks" if mesh is not None else ""
         print(f"engine: {engine}{sharding} on {device}{ranks}", file=sys.stderr)
+    profiler = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        # acc_events: one start-stop cycle, so no warning that a cycle's end clears the events
+        profiler = profile(activities=activities, acc_events=True)
+        profiler.start()
     n_passes = args.passes if args.passes > 0 else 1 << 30
     if engine == "parity" or mesh is not None:
         batch = 1  # one scan per pass, as the JAX CLI runs it
@@ -312,9 +337,15 @@ def _render(args, device, mesh) -> int:
                 pass_samples = nb * args.width * args.height * eff_spp
                 now = time.time()
                 rate = pass_samples / max(now - t_pass, 1e-9)
+                per_rank = (
+                    f" [{mesh.size} ranks x {format_si(rate / mesh.size)}/rank]"
+                    if mesh is not None and mesh.size > 1
+                    else ""
+                )
                 print(
                     f"pass {done}: {args.width}x{args.height}, {now - t0:.1f}s, "
                     f"{done * eff_spp} samples/pixel, {format_si(rate)} samples/s"
+                    + per_rank
                     + (" (incl. warm-up)" if first else ""),
                     file=sys.stderr,
                 )
@@ -343,7 +374,16 @@ def _render(args, device, mesh) -> int:
                     break
     except KeyboardInterrupt:
         print("interrupted, saving", file=sys.stderr)
+    finally:
+        if profiler is not None:
+            profiler.stop()
 
+    if profiler is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        name = "trace.json" if mesh is None else f"trace.rank{mesh.rank}.json"
+        profiler.export_chrome_trace(os.path.join(args.profile, name))
+        if lead:
+            print(f"profile trace in {args.profile}", file=sys.stderr)
     if done > 0 and lead:
         save_png(args.out, total / done)
         print(f"saved {args.out}", file=sys.stderr)

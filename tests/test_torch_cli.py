@@ -1,6 +1,7 @@
 """Port CLI end to end on the CPU, engine selection, and the port's
 independence from jax."""
 
+import json
 import os
 import subprocess
 import sys
@@ -135,6 +136,26 @@ def test_procedural_big_scene_through_the_cli(tmp_path):
     assert img.shape == (12, 16, 4) and np.isfinite(img).all() and img[..., :3].mean() > 0
     r = run_cli(["--device", "cpu", "--procedural", "5", CAUSTICS, "-o", str(out)])
     assert r.returncode == 2 and "not both" in r.stderr
+
+
+@pytest.mark.parametrize("shard", [False, True], ids=["one-process", "shard"])
+def test_profile_writes_a_chrome_trace(tmp_path, capsys, shard):
+    """--profile DIR records the render loop and writes a Chrome trace JSON
+    that parses and holds the port's operations (on the CPU: no CUDA
+    events); under --shard, one file per rank with the rank in its name,
+    and no rate per rank in a group of one."""
+    prof = tmp_path / "prof"
+    args = ["--device", "cpu", "-w", "16", "-h", "12", "--spp", "4", "--passes", "2", "--depth", "2", CAUSTICS,
+            "-o", str(tmp_path / "p.png"), "--profile", str(prof)]
+    assert cli.main(args + (["--shard"] if shard else [])) == 0
+    err = capsys.readouterr().err
+    assert f"profile trace in {prof}" in err and "pass 2:" in err and "ranks x" not in err
+    name = "trace.rank0.json" if shard else "trace.json"
+    assert sorted(os.listdir(prof)) == [name]
+    events = json.loads((prof / name).read_text())["traceEvents"]
+    ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    assert {"aten::where", "aten::mul"} <= ops, sorted(ops)[:20]
+    assert not any(e.get("cat") in ("kernel", "gpu_memcpy") for e in events)
 
 
 def test_port_imports_no_jax():

@@ -6,15 +6,18 @@ cluster's environment is a no-op, and two processes that join one gloo group
 (``tests/_torch_multihost_worker.py``, a ``file://`` address in ``tmp_path``,
 no port) render through ``render_distributed`` what one process renders
 unsharded, bit for bit (the wavefront on a dense scene, lanes keyed by their
-global id). The module's ``main`` and the CLI's sharded flags run alone, as
-a group of one process.
+global id); the CLI's ``--shard`` in that group prints the rate per rank
+and writes a profile trace per rank. The module's ``main`` and the CLI's
+sharded flags run alone, as a group of one process.
 """
 
+import json
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch.distributed as dist
 from torch_port import DATA, REPO
 
@@ -36,7 +39,11 @@ def test_initialize_without_environment_is_a_noop(monkeypatch):
     assert not dist.is_initialized()
 
 
-def test_two_process_render_matches_single(tmp_path):
+@pytest.fixture(scope="module")
+def two_processes(tmp_path_factory):
+    """The two ranks of tests/_torch_multihost_worker.py -> (their output
+    directory, each rank's (stdout, stderr))."""
+    tmp_path = tmp_path_factory.mktemp("multihost")
     worker = os.path.join(REPO, "tests", "_torch_multihost_worker.py")
     procs = [
         subprocess.Popen([sys.executable, worker, str(r), "2", str(tmp_path / "store"), CAUSTICS, str(W), str(H),
@@ -51,6 +58,11 @@ def test_two_process_render_matches_single(tmp_path):
             p.kill()
     for r, (p, (_, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
+    return tmp_path, outs
+
+
+def test_two_process_render_matches_single(two_processes):
+    tmp_path, outs = two_processes
     got = np.load(tmp_path / "mh.npy")
     # render_distributed's pass p takes the seed of key.fold_in(p)
     scene = parser.load(CAUSTICS, W / H, "cpu")
@@ -59,6 +71,22 @@ def test_two_process_render_matches_single(tmp_path):
     assert "2 processes on cpu" in outs[0][0] and "samples/s" in outs[0][0]
     png = load_png(str(tmp_path / "mh.png"))
     assert png.shape == (H, W, 4) and png[..., :3].mean() > 0
+
+
+def test_two_process_cli_rate_per_rank_and_traces(two_processes):
+    """The CLI's --shard over the two ranks: rank 0 prints the pass with
+    the rate per rank and the trace's place; each rank writes its own
+    trace, which parses and holds the port's operations."""
+    tmp_path, outs = two_processes
+    err0, err1 = outs[0][1], outs[1][1]
+    assert "pass 1:" in err0 and "[2 ranks x " in err0 and "/rank]" in err0, err0[-2000:]
+    assert f"profile trace in {tmp_path / 'prof'}" in err0
+    assert "pass 1:" not in err1 and "profile trace in" not in err1
+    assert sorted(os.listdir(tmp_path / "prof")) == ["trace.rank0.json", "trace.rank1.json"]
+    for r in range(2):
+        events = json.loads((tmp_path / "prof" / f"trace.rank{r}.json").read_text())["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" and e["name"] == "aten::where" for e in events)
+    assert load_png(str(tmp_path / "cli.png")).shape == (H, W, 4)
 
 
 def _run(module, args):
