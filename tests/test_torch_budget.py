@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_goldens import replayed
 from test_diff import _two_sphere_scene
 from torch_port import JaxKey, jax_scene, jax_two_light_scene, mean_rel, rel_l2, tm_mad, to_port
 
@@ -54,11 +55,16 @@ from kajo_tpu_torch.scene.procedural import random_spheres_scene
 W, H, SPP = 32, 24, 4
 
 
+@replayed
+def kajo_budget_pass(js, key, w, h, spp, max_depth):
+    return {"img": jax_render_pass_budget(js, key, w, h, spp, JaxRenderConfig(max_depth=max_depth))}
+
+
 @pytest.mark.parametrize("name", ["caustics.json", "scaled.json", "two-light"], ids=["caustics", "scaled", "two-light"])
 def test_budget_pass_matches_jax(name):
     js = jax_two_light_scene(W / H) if name == "two-light" else jax_scene(name, W / H)
     key = jax.random.PRNGKey(5)
-    want = np.asarray(jax_render_pass_budget(js, key, W, H, SPP, JaxRenderConfig(max_depth=2)))
+    want = kajo_budget_pass(js, key, W, H, SPP, 2)["img"]
     got = wavefront.render_pass_budget(to_port(js), int(seed_from_key(key)), W, H, SPP, RenderConfig(max_depth=2))
     got = got.numpy()
     assert got.shape == (H, W, 4) and np.isfinite(got).all() and (got[..., 3] == 1).all()
@@ -93,19 +99,27 @@ GRAD_W = GRAD_H = 16
 GRAD_SPEC = ("sphere_transform", "sphere_radius", "diffuse", "emission", "specular_exponent")
 
 
+@replayed
+def kajo_budget_grads(js, cot, key, spec, w, h):
+    """kajo_tpu's budget loss mean(image * cot) and its gradients, under one jit."""
+
+    def jax_loss(params):
+        img = jax_render_pass_budget(jax_apply_params(js, params), key, w, h, 4, JaxRenderConfig(max_depth=2))
+        return jnp.mean(img[..., :3] * cot)
+
+    jp = {k: getattr(js, k) if hasattr(js, k) else getattr(js.materials, k) for k in spec}
+    loss, grads = jax.jit(jax.value_and_grad(jax_loss))(jp)
+    return dict({f"grad/{k}": v for k, v in grads.items()}, loss=loss)
+
+
 @pytest.fixture(scope="module")
 def budget_grads():
     """The budget loss's gradients in both packages, JAX's under one jit."""
     js = _two_sphere_scene()
     cot = np.random.default_rng(0).random((GRAD_H, GRAD_W, 3)).astype(np.float32)
     key = jax.random.PRNGKey(3)
-
-    def jax_loss(params):
-        img = jax_render_pass_budget(jax_apply_params(js, params), key, GRAD_W, GRAD_H, 4, JaxRenderConfig(max_depth=2))
-        return jnp.mean(img[..., :3] * cot)
-
-    jp = {k: getattr(js, k) if hasattr(js, k) else getattr(js.materials, k) for k in GRAD_SPEC}
-    want_loss, want = jax.jit(jax.value_and_grad(jax_loss))(jp)
+    ref = kajo_budget_grads(js, cot, key, GRAD_SPEC, GRAD_W, GRAD_H)
+    want_loss, want = ref["loss"], {k: ref[f"grad/{k}"] for k in GRAD_SPEC}
     scene = to_port(js)
     leaves = {k: v.requires_grad_(True) for k, v in extract_params(scene, GRAD_SPEC).items()}
     img = wavefront.render_pass_budget(apply_params(scene, leaves), int(seed_from_key(key)), GRAD_W, GRAD_H, 4,
@@ -217,18 +231,26 @@ def _scene_rays(jitter):
     return prep, o, d / torch.linalg.norm(d, dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_nearest_vjp_matches_jax(jitter):
+@replayed
+def kajo_nearest_bwd(rigid, o, d, packed, boxes, t, idx, gt):
+    """kajo_tpu's VJP of the streamed nearest hit on these residuals."""
     from kajo_tpu.ops.pallas.stream_trace import _nearest_bwd
 
+    res = tuple(jnp.asarray(x) for x in (o, d, packed, boxes, t, idx))
+    return dict(zip(("o", "d", "t_max", "packed", "boxes"), _nearest_bwd(rigid, res, (jnp.asarray(gt), None))))
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
+def test_nearest_vjp_matches_jax(jitter):
     prep, o, d = _scene_rays(jitter)
     bound = torch.full((o.shape[0],), st.BIG)
     t, idx = st.nearest_sphere_plain(prep.rigid, o, d, bound, prep.stream_packed, prep.stream_boxes)
     assert int((idx >= 0).sum()) > o.shape[0] // 2
     gt = torch.from_numpy(np.random.default_rng(1).normal(size=o.shape[0]).astype(np.float32))
     got = st.nearest_vjp(prep.rigid, o, d, prep.stream_packed, idx, gt)
-    res = tuple(jnp.asarray(x.numpy()) for x in (o, d, prep.stream_packed, prep.stream_boxes, t, idx.to(torch.int32)))
-    go, gd, gtm, gpacked, gboxes = _nearest_bwd(prep.rigid, res, (jnp.asarray(gt.numpy()), None))
+    ref = kajo_nearest_bwd(prep.rigid, *(x.numpy() for x in (o, d, prep.stream_packed, prep.stream_boxes, t,
+                                                               idx.to(torch.int32), gt)))
+    go, gd, gtm, gpacked, gboxes = (ref[k] for k in ("o", "d", "t_max", "packed", "boxes"))
     assert not np.asarray(gtm).any() and not np.asarray(gboxes).any()
     for label, g, want in zip(("o", "d", "packed"), got, (go, gd, gpacked)):
         want = np.asarray(want)
@@ -266,10 +288,16 @@ def test_streamed_gradient_matches_dense(monkeypatch):
     assert cos > 0.999, cos
 
 
+@replayed
+def kajo_image_fast(js, w, h, spp, key, passes, max_depth):
+    config = JaxRenderConfig(max_depth=max_depth)
+    return {"img": jax_render_image_fast(js, w, h, spp, key, passes=passes, config=config)}
+
+
 def test_render_image_fast_matches_jax():
     js = jax_scene("caustics.json", W / H)
     key = jax.random.PRNGKey(6)
-    want = np.asarray(jax_render_image_fast(js, W, H, SPP, key, passes=2, config=JaxRenderConfig(max_depth=2)))
+    want = kajo_image_fast(js, W, H, SPP, key, 2, 2)["img"]
     got = wavefront.render_image_fast(to_port(js), W, H, SPP, JaxKey(key), passes=2, config=RenderConfig(max_depth=2))
     got = got.numpy()
     mad, rel = tm_mad(got, want), mean_rel(got, want)

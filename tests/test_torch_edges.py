@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_goldens import replayed
 from test_edges import _edge_scene, _shadow_scene
 from torch_port import JaxKey, rel_l2, to_port
 
@@ -49,9 +50,6 @@ from kajo_tpu_torch.scene.types import map_tensors
 
 W = H = 32
 CFG, SHADOW_CFG = dict(max_depth=2), dict(max_depth=1)
-STATIC = ("width", "height", "config", "n_edge")
-_jax_silhouette = jax.jit(jax_edges.silhouette_loss_grads, static_argnames=STATIC)
-_jax_shadow = jax.jit(jax_edges.shadow_silhouette_grads, static_argnames=STATIC)
 
 
 @pytest.mark.parametrize("kind", ["silhouette", "shadow"])
@@ -70,16 +68,24 @@ def _cotangent(kind, w=W, h=H):
     return np.random.default_rng(4).normal(size=(h, w, 3)).astype(np.float32)
 
 
+@replayed
+def kajo_boundary_grads(kind, js, key, c, w, h, cfg, n_edge):
+    fn = jax_edges.silhouette_loss_grads if kind == "silhouette" else jax_edges.shadow_silhouette_grads
+    jax_fn = jax.jit(fn, static_argnames=("width", "height", "config", "n_edge"))
+    want_c, want_r = jax_fn(js, key, jnp.asarray(c), width=w, height=h, config=JaxRenderConfig(**cfg), n_edge=n_edge)
+    return {"center": want_c, "radius": want_r}
+
+
 @pytest.mark.parametrize("cot", ["ramp", "random"])
 @pytest.mark.parametrize("kind", ["silhouette", "shadow"])
 def test_boundary_grads_match_jax(kind, cot):
     c = _cotangent(cot)
     if kind == "silhouette":
-        js, cfg, n_edge, jax_fn, fn = _edge_scene(0.3, -0.2), CFG, 64, _jax_silhouette, edges.silhouette_loss_grads
+        js, cfg, n_edge, fn = _edge_scene(0.3, -0.2), CFG, 64, edges.silhouette_loss_grads
     else:
-        js, cfg, n_edge, jax_fn, fn = _shadow_scene(), SHADOW_CFG, 4, _jax_shadow, edges.shadow_silhouette_grads
-    want_c, want_r = jax_fn(js, jax.random.PRNGKey(1), jnp.asarray(c), width=W, height=H,
-                            config=JaxRenderConfig(**cfg), n_edge=n_edge)
+        js, cfg, n_edge, fn = _shadow_scene(), SHADOW_CFG, 4, edges.shadow_silhouette_grads
+    want = kajo_boundary_grads(kind, js, jax.random.PRNGKey(1), c, W, H, cfg, n_edge)
+    want_c, want_r = want["center"], want["radius"]
     got_c, got_r = fn(to_port(js), JaxKey(1), torch.from_numpy(c), W, H, RenderConfig(**cfg), n_edge)
     gaps = rel_l2(got_c, want_c), rel_l2(got_r, want_r)
     print(f"{kind} {cot}: centre {got_c.numpy().ravel()} vs {np.asarray(want_c).ravel()}, radius "

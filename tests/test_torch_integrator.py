@@ -40,6 +40,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax_goldens import replayed
 from torch_port import DATA, GOLDENS, JaxKey, jax_scene, jax_two_light_scene, mean_rel, tm_mad, to_port
 
 from kajo_tpu.models import integrator as jax_integrator
@@ -54,9 +55,6 @@ from kajo_tpu_torch.scene.types import Camera, make_scene
 
 W, H = 16, 12
 LANE_TIGHT, LANE_LOOSE = 1e-5, 1e-3
-
-_jax_samples = jax.jit(jax_integrator.render_samples, static_argnames="config")
-_jax_pass = jax_integrator.render_pass  # jitted by kajo_tpu
 
 
 def _scene(name, aspect):
@@ -88,6 +86,19 @@ CASES = {
 }
 
 
+@replayed
+def kajo_samples(js, o, d, key, cfg):
+    samples = jax.jit(jax_integrator.render_samples, static_argnames="config")
+    return {"out": samples(jax_geometry.prepare_scene(js), o, d, key, jax_integrator.RenderConfig(**cfg))}
+
+
+@replayed
+def kajo_pass_and_image(js, w, h, cfg):
+    jcfg = jax_integrator.RenderConfig(**cfg)
+    return {"pass": jax_integrator.render_pass(js, jax.random.PRNGKey(11), w, h, 4, jcfg),
+            "image": jax_integrator.render_image(js, w, h, 1, jax.random.PRNGKey(12), passes=2, config=jcfg)}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_render_samples_matches_jax(case):
     name, cfg = CASES[case]
@@ -97,7 +108,7 @@ def test_render_samples_matches_jax(case):
     sx, sy = (r.random(W * H).astype(np.float32) for _ in range(2))
     o, d = (np.array(a) for a in jax_geometry.generate_rays(jprep.camera, sx, sy))
     key = 3
-    want = np.asarray(_jax_samples(jprep, o, d, jax.random.PRNGKey(key), jax_integrator.RenderConfig(**cfg)))
+    want = kajo_samples(js, o, d, jax.random.PRNGKey(key), cfg)["out"]
     prep = geometry.prepare_scene(to_port(js))
     got = integrator.render_samples(prep, torch.from_numpy(o), torch.from_numpy(d), JaxKey(key), RenderConfig(**cfg))
     assert got.shape == (W * H, 4) and got.dtype == torch.float32
@@ -110,14 +121,15 @@ def test_render_pass_and_image_match_jax(case):
     name, cfg = CASES[case]
     js = _scene(name, W / H)
     scene = to_port(js)
-    jcfg, pcfg = jax_integrator.RenderConfig(**cfg), RenderConfig(**cfg)
-    want = np.asarray(_jax_pass(js, jax.random.PRNGKey(11), W, H, 4, jcfg))
+    pcfg = RenderConfig(**cfg)
+    ref = kajo_pass_and_image(js, W, H, cfg)
+    want = ref["pass"]
     got = integrator.render_pass(scene, JaxKey(11), W, H, 4, pcfg).numpy()
     assert got.shape == (H, W, 4)
     _lanes(f"{case} pass", got.reshape(-1, 4), want.reshape(-1, 4))
     assert tm_mad(got, want) <= 5e-4 and mean_rel(got, want) <= 0.01
     # render_image: pass p under fold_in(key, p)
-    want = np.asarray(jax_integrator.render_image(js, W, H, 1, jax.random.PRNGKey(12), passes=2, config=jcfg))
+    want = ref["image"]
     got = integrator.render_image(scene, W, H, 1, JaxKey(12), passes=2, config=pcfg).numpy()
     _lanes(f"{case} image", got.reshape(-1, 4), want.reshape(-1, 4))
     assert tm_mad(got, want) <= 5e-4 and mean_rel(got, want) <= 0.01

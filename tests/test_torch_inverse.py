@@ -45,6 +45,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax_goldens import replayed
 from torch_port import jax_grad_scene, jax_kernel_reference, rel_l2, to_port
 
 from kajo_tpu_torch import inverse_rendering
@@ -278,29 +279,37 @@ def test_entry_point_on_the_cpu(engine, tmp_path):
 JAX_SPEC = ("sphere_transform", "sphere_radius", "diffuse", "specular_exponent", "refractive_index", "transparency")
 
 
-@pytest.fixture(scope="module")
-def jax_render_loss():
-    """kajo_tpu's render_loss and its gradient under one jit, on caustics at
-    8x6, with its key's two halves as u32 seeds; and the port's."""
+@replayed
+def kajo_render_loss(js, target, key, spec, w, h, spp, cfg, clip):
+    """kajo_tpu's render_loss and its gradient under one jit, with its key's
+    two halves as u32 seeds."""
     from kajo_tpu.diff.inverse import extract_params as jax_extract_params
     from kajo_tpu.diff.inverse import render_loss
     from kajo_tpu.models.integrator import RenderConfig as JaxRenderConfig
     from kajo_tpu.ops.rng import seed_from_key
 
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: render_loss(p, js, target, key, w, h, spp, JaxRenderConfig(**cfg), loss_clip=clip)
+    ))(jax_extract_params(js, spec))
+    seeds = np.array([seed_from_key(k) for k in jax.random.split(key)], np.uint32)
+    return dict({f"grad/{k}": v for k, v in grads.items()}, loss=loss, seeds=seeds)
+
+
+@pytest.fixture(scope="module")
+def jax_render_loss():
+    """kajo_tpu's render_loss and its gradient on caustics at 8x6, with its
+    key's two halves as u32 seeds; and the port's."""
     js = jax_grad_scene("caustics.json", W / H)
     target = _target(to_port(js)).numpy()
-    key = jax.random.PRNGKey(8)
-    want_loss, want = jax.jit(jax.value_and_grad(
-        lambda p: render_loss(p, js, target, key, W, H, SPP, JaxRenderConfig(**CFG), loss_clip=CLIP)
-    ))(jax_extract_params(js, JAX_SPEC))
-    seeds = tuple(int(seed_from_key(k)) for k in jax.random.split(key))
+    ref = kajo_render_loss(js, target, jax.random.PRNGKey(8), JAX_SPEC, W, H, SPP, CFG, CLIP)
+    seeds = tuple(int(s) for s in ref["seeds"])
     scene = _scene()
     leaves = {k: v.requires_grad_(True) for k, v in inverse.extract_params(scene, JAX_SPEC).items()}
     loss = inverse.render_loss(leaves, scene, torch.tensor(target), *seeds, W, H, SPP, RenderConfig(**CFG),
                                loss_clip=CLIP)
     got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     got = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(JAX_SPEC, got)}
-    return target, seeds, (loss.detach(), got), (float(want_loss), {k: np.asarray(v) for k, v in want.items()})
+    return target, seeds, (loss.detach(), got), (float(ref["loss"]), {k: ref[f"grad/{k}"] for k in JAX_SPEC})
 
 
 def _jax_engine(target, **kw):

@@ -34,6 +34,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+from jax_goldens import replayed
 from torch_port import REPO, JaxKey, mean_rel, tm_mad
 
 from kajo_tpu.models.integrator import RenderConfig as JaxRenderConfig
@@ -132,6 +133,13 @@ def test_engine_auto_is_fast_on_the_cpu(sharded):
     np.testing.assert_array_equal(sharded["engine/auto"], sharded["fast/16x12/whole"])
 
 
+@replayed
+def kajo_parity_sharded(js, key, w, h, spp, depth):
+    """kajo_tpu's render_pass_sharded over 2 of the virtual devices."""
+    return {"img": jax_render_pass_sharded(js, key, w, h, spp, JaxRenderConfig(max_depth=depth),
+                                           jax_make_mesh(jax.devices()[:2]))}
+
+
 def test_parity_sharded_matches_kajo_tpu(sharded):
     """With the JAX package's draws, the port's sharded parity pass over 3
     ranks against kajo_tpu's render_pass_sharded over 2 devices.
@@ -143,9 +151,7 @@ def test_parity_sharded_matches_kajo_tpu(sharded):
     At 16x12 one value of 768 exceeds rtol 1e-4 (by 2.9e-5, relative
     3.5e-4). The bars: every value within rtol 1e-3, atol 1e-5, and at least
     99% within kajo_tpu's rtol 1e-4, atol 1e-5."""
-    key = jax.random.PRNGKey(PARITY_KEY)
-    want = np.asarray(jax_render_pass_sharded(jax_build_test_scene(W / H), key, W, H, SPP,
-                                              JaxRenderConfig(max_depth=DEPTH), jax_make_mesh(jax.devices()[:2])))
+    want = kajo_parity_sharded(jax_build_test_scene(W / H), jax.random.PRNGKey(PARITY_KEY), W, H, SPP, DEPTH)["img"]
     got = sharded["parity/jax-draws"]
     within = np.abs(got - want) <= ATOL + RTOL * np.abs(want)
     print(f"parity vs kajo_tpu: {_differ(got, want)} of {W * H} pixels differ at all, "
@@ -170,6 +176,15 @@ def test_objsharded_matches_unsharded(sharded, name):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+@replayed
+def kajo_objsharded(js, key, w, h, spp, depth):
+    """kajo_tpu's render_pass_fast_objsharded over 2 of the virtual devices,
+    and its unsharded render_pass_fast."""
+    config = JaxRenderConfig(max_depth=depth)
+    return {"sharded": jax_objsharded(js, key, w, h, spp, config, jax_make_mesh(jax.devices()[:2])),
+            "whole": jax_render_pass_fast(js, key, w, h, spp, config)}
+
+
 @pytest.mark.parametrize("name", ["rigid", "jitter"])
 def test_objsharded_matches_kajo_tpu(sharded, name):
     """kajo_tpu's render_pass_fast_objsharded over 2 devices (dense shards)
@@ -187,9 +202,8 @@ def test_objsharded_matches_kajo_tpu(sharded, name):
     kw = dict(n_lights=2) if name == "rigid" else dict(n_lights=1, scale_jitter=0.5)
     n, seed, extent = (67, 21, 12.0) if name == "rigid" else (31, 22, 10.0)
     scene = jax_random_spheres_scene(n, seed=seed, extent=extent, aspect_ratio=W / H, **kw)
-    key, config = jax.random.PRNGKey(OBJ_KEY), JaxRenderConfig(max_depth=DEPTH)
-    want = np.asarray(jax_objsharded(scene, key, W, H, SPP, config, jax_make_mesh(jax.devices()[:2])))
-    jax_whole = np.asarray(jax_render_pass_fast(scene, key, W, H, SPP, config))
+    ref = kajo_objsharded(scene, jax.random.PRNGKey(OBJ_KEY), W, H, SPP, DEPTH)
+    want, jax_whole = ref["sharded"], ref["whole"]
     got, port_whole = sharded[f"obj/{name}"], sharded[f"obj/{name}/whole"]
     gap, whole_gap = np.abs(got - want).max(), np.abs(port_whole - jax_whole).max()
     outside = int((np.abs(got - want) > ATOL + RTOL * np.abs(want)).sum())

@@ -30,15 +30,12 @@ with the port's own is ``test_torch_stream_trace.py``'s).
     lists cut to the blocks admitted there give the same bits.
 """
 
-import os
-import subprocess
-import sys
 import types
 
 import numpy as np
 import pytest
 import torch
-from torch_port import REPO, mean_rel, tm_mad
+from torch_port import jax_script_reference, mean_rel, tm_mad
 
 from kajo_tpu_torch.models import wavefront
 from kajo_tpu_torch.models.integrator import RenderConfig
@@ -58,18 +55,8 @@ KAJO_V1_TILE = 4096  # kajo_tpu's RAY_ROWS x 128
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_stream_designs")
-    env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    script = os.path.join(REPO, "tests", "_jax_stream_designs_ref.py")
-    procs = {
-        c: subprocess.Popen([sys.executable, script, str(out / f"{c}.npz"), c], env=env, cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for c in CASE_DESIGNS
-    }
-    for c, p in procs.items():
-        log, _ = p.communicate(timeout=600)
-        assert p.returncode == 0, log[-3000:]
-    return {c: dict(np.load(out / f"{c}.npz")) for c in CASE_DESIGNS}
+    return jax_script_reference(tmp_path_factory.mktemp("jax_stream_designs"), "_jax_stream_designs_ref.py",
+                                CASE_DESIGNS, "_jax_stream_ref.py", "stream_far_rays.py")
 
 
 def _inputs(case, ref):

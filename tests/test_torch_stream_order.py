@@ -19,7 +19,8 @@ on K6's own cuts the superblock test admits every block the block test
 admits.
 
 Small scenes, no JAX: the kernels themselves are held on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7)."""
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7). Each scene is
+prepared once for the module; each test draws its own rays."""
 
 import numpy as np
 import pytest
@@ -29,9 +30,17 @@ from kajo_tpu_torch.ops import geometry
 from kajo_tpu_torch.ops import stream_trace as st
 from kajo_tpu_torch.scene.procedural import random_spheres_scene
 
+# one intra-op thread, as tests/torch_port.py sets for the other port files:
+# pytest-xdist runs a process per core, and PyTorch's pool of a thread per
+# core made this file's plain K5/K6 ~60x slower on a loaded 8-core CPU
+torch.set_num_threads(1)
 
-def _scene(jitter):
-    prep = geometry.prepare_scene(random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=jitter, device="cpu"))
+
+@pytest.fixture(scope="module", params=[0.0, 0.5], ids=["rigid", "general"])
+def prep(request):
+    """The prepared 1500-sphere field, rigid or with ``scale_jitter=0.5``."""
+    prep = geometry.prepare_scene(
+        random_spheres_scene(1500, seed=4, extent=20.0, scale_jitter=request.param, device="cpu"))
     assert prep.stream_packed is not None and prep.stream_sboxes.shape == (2, 8)
     return prep
 
@@ -57,9 +66,7 @@ def _rays(prep, seed):
     return o.contiguous(), d.contiguous(), bound
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_answers_do_not_depend_on_ray_order(jitter):
-    prep = _scene(jitter)
+def test_answers_do_not_depend_on_ray_order(prep):
     o, d, bound = _rays(prep, seed=1)
     args = (prep.stream_packed, prep.stream_boxes, prep.stream_sboxes)
     t, idx = st.nearest_sphere_plain(prep.rigid, o, d, bound, *args)
@@ -104,9 +111,7 @@ def _hard_rays(boxes, n, seed):
     return torch.tensor(o), torch.tensor(d)
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_superblock_never_rejects_an_admitted_block(jitter):
-    prep = _scene(jitter)
+def test_superblock_never_rejects_an_admitted_block(prep):
     boxes, sboxes = prep.stream_boxes, prep.stream_sboxes
     per = st.V2_SUPER // st.BLOCK
     o, d = _hard_rays(boxes, 6000, seed=3)
@@ -154,9 +159,7 @@ def _shadow_args(prep, seed):
     return o, d, cut, excl
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_occlusion_does_not_depend_on_ray_order(jitter):
-    prep = _scene(jitter)
+def test_occlusion_does_not_depend_on_ray_order(prep):
     o, d, cut, excl = _shadow_args(prep, seed=6)
     args = (prep.stream_packed, prep.stream_boxes, prep.stream_sboxes)
     out = st.occluded_sphere_plain(prep.rigid, o, d, cut, excl, *args)
@@ -171,13 +174,11 @@ def test_occlusion_does_not_depend_on_ray_order(jitter):
         assert torch.equal(back.view(torch.int32), out.view(torch.int32)), label
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_occlusion_does_not_depend_on_block_order(jitter):
+def test_occlusion_does_not_depend_on_block_order(prep):
     """The packed blocks (records, boxes and the excluded rows with them)
     visited in reversed and in a random order: the same bits on every ray,
     which is what lets K6 stop a ray at its first occluder and test a
     superblock before its blocks."""
-    prep = _scene(jitter)
     o, d, cut, excl = _shadow_args(prep, seed=9)
     packed, boxes = prep.stream_packed, prep.stream_boxes
     out = st.occluded_sphere_plain(prep.rigid, o, d, cut, excl, packed, boxes)
@@ -194,12 +195,10 @@ def test_occlusion_does_not_depend_on_block_order(jitter):
         assert torch.equal(got.view(torch.int32), out.view(torch.int32)), label
 
 
-@pytest.mark.parametrize("jitter", [0.0, 0.5], ids=["rigid", "general"])
-def test_superblock_admits_every_block_k6_tests(jitter):
+def test_superblock_admits_every_block_k6_tests(prep):
     """On K6's own inputs: wherever a block's box test admits a ray at its
     cut (the only bound K6 tests a block against before the ray is
     occluded), the block's superblock test admits it too."""
-    prep = _scene(jitter)
     o, d, cut, _ = _shadow_args(prep, seed=12)
     boxes, sboxes = prep.stream_boxes, prep.stream_sboxes
     member = torch.arange(boxes.shape[0]) // (st.V2_SUPER // st.BLOCK)

@@ -18,14 +18,11 @@ Pallas interpret mode with ``geometry.FORCE_STREAM``. Scene:
 """
 
 import dataclasses
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
-from torch_port import REPO
+from torch_port import jax_script_reference
 
 from kajo_tpu_torch.ops import geometry, stream_trace
 from kajo_tpu_torch.scene.procedural import random_spheres_scene
@@ -35,18 +32,7 @@ CASES = ("rigid", "jitter")
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_stream_ref")
-    env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    script = os.path.join(REPO, "tests", "_jax_stream_ref.py")
-    procs = {
-        c: subprocess.Popen([sys.executable, script, str(out / f"{c}.npz"), c], env=env, cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for c in CASES
-    }
-    for c, p in procs.items():
-        log, _ = p.communicate(timeout=600)
-        assert p.returncode == 0, log[-3000:]
-    return {c: dict(np.load(out / f"{c}.npz")) for c in CASES}
+    return jax_script_reference(tmp_path_factory.mktemp("jax_stream_ref"), "_jax_stream_ref.py", CASES)
 
 
 def _port_prep(case, ref):

@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 from jax.experimental.pallas import tpu as pltpu
+from jax_goldens import replayed
 from torch_port import mean_rel, tm_mad, to_port
 
 from kajo_tpu.models.integrator import RenderConfig as JaxRenderConfig
@@ -30,19 +31,27 @@ from kajo_tpu_torch.ops import geometry, stream_trace
 W, H, SPP = 32, 24, 4
 
 
-def _both(js, key, config, threshold, monkeypatch):
-    """The pass in both packages with STREAM_THRESHOLD ``threshold`` ->
-    (port image, kajo_tpu image, the port's prepared scene)."""
+@replayed
+def kajo_fast_pass(js, key, w, h, spp, config, threshold):
+    """kajo_tpu's pass in interpret mode with STREAM_THRESHOLD ``threshold``
+    and FORCE_STREAM."""
     # the JAX pass is jitted with the stream flags baked in: clear its cache
     # on both sides of the flag change
-    monkeypatch.setattr(jgeo, "STREAM_THRESHOLD", threshold)
-    monkeypatch.setattr(jgeo, "FORCE_STREAM", True)
+    flags = jgeo.STREAM_THRESHOLD, jgeo.FORCE_STREAM
+    jgeo.STREAM_THRESHOLD, jgeo.FORCE_STREAM = threshold, True
     jax_render_pass_fast.clear_cache()
     try:
         with pltpu.force_tpu_interpret_mode():
-            want = np.asarray(jax_render_pass_fast(js, key, W, H, SPP, JaxRenderConfig(max_depth=2, **config)))
+            return {"img": jax_render_pass_fast(js, key, w, h, spp, JaxRenderConfig(max_depth=2, **config))}
     finally:
+        jgeo.STREAM_THRESHOLD, jgeo.FORCE_STREAM = flags
         jax_render_pass_fast.clear_cache()
+
+
+def _both(js, key, config, threshold, monkeypatch):
+    """The pass in both packages with STREAM_THRESHOLD ``threshold`` ->
+    (port image, kajo_tpu image, the port's prepared scene)."""
+    want = kajo_fast_pass(js, key, W, H, SPP, config, threshold)["img"]
     monkeypatch.setattr(geometry, "STREAM_THRESHOLD", threshold)
     ts = to_port(js)
     got = wavefront.render_pass_fast(ts, int(seed_from_key(key)), W, H, SPP, RenderConfig(max_depth=2, **config)).numpy()

@@ -1,7 +1,9 @@
 """Shared helpers of the tests that hold the PyTorch port (``kajo_tpu_torch``)
 against the JAX package (``kajo_tpu``): one scene handed to both packages,
 the JAX megakernel run as its own tests run it on the CPU (Pallas interpret
-mode), and the image metrics of the comparisons."""
+mode), and the image metrics of the comparisons. The JAX package's outputs
+come through ``jax_goldens.cached``: replayed from ``tests/goldens/jax_ref/``
+where stored, else computed."""
 
 import dataclasses
 import os
@@ -19,6 +21,7 @@ from kajo_tpu.scene.types import Camera as JaxCamera
 from kajo_tpu.scene.types import make_scene as jax_make_scene
 from kajo_tpu_torch.scene.testscene import mirror_cluster_parts, two_light_scene_parts
 from kajo_tpu_torch.scene.types import scene_from_numpy
+from jax_goldens import cached, keep, lookup, replayed, source
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data")
@@ -52,10 +55,16 @@ def jax_mirror_cluster(aspect=4 / 3):
 def jax_pass(scene, key_int, w, h, spp, **config):
     """The JAX megakernel pass in interpret mode -> (image, u32 seed): the
     port takes the same seed as a plain integer."""
+    out = jax_megakernel_pass(scene, key_int, w, h, spp, config)
+    return out["img"], int(out["seed"])
+
+
+@replayed
+def jax_megakernel_pass(scene, key_int, w, h, spp, config):
     key = jax.random.PRNGKey(key_int)
     with pltpu.force_tpu_interpret_mode():
         img = jax_megakernel.render_pass_megakernel(scene, key, w, h, spp, JaxRenderConfig(**config))
-    return np.asarray(img), int(seed_from_key(key))
+    return {"img": np.asarray(img), "seed": np.uint32(seed_from_key(key))}
 
 
 def jax_grad_scene(name, aspect):
@@ -75,6 +84,17 @@ def jax_grad_scene(name, aspect):
     return jax_scene(name, aspect)
 
 
+# the reference scripts' XLA: no fused multiply-add (see tests/_jax_stream_ref.py)
+SSE42 = "--xla_cpu_max_isa=SSE4_2"
+# a reference subprocess's limit: about 3x the longest one's time, ~200 s for
+# test_torch_inverse.py's loss job beside 5 other test processes on 8 cores
+REF_TIMEOUT = 600
+
+
+def _ref_env():
+    return dict(os.environ, XLA_FLAGS=SSE42, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+
+
 def jax_grad_reference(tmp_dir, jobs, arrays):
     """The JAX gradient kernels on ``jobs`` (see ``tests/_jax_grad_ref.py``):
     K2 ``render_pass_megakernel_jvp``, K3 ``material_grads``, K4
@@ -83,22 +103,56 @@ def jax_grad_reference(tmp_dir, jobs, arrays):
 
     They run in a subprocess whose XLA fuses no multiply-add (SSE4.2), on
     the port's packed scene of each job's scene (``arrays["packed/<scene>"]``,
-    see :func:`port_packed`), so both packages do the same arithmetic."""
+    see :func:`port_packed`), so both packages do the same arithmetic. The
+    key holds the jobs, the arrays, the JAX scenes the script builds and its
+    source."""
     import json
     import subprocess
     import sys
 
-    inp, out, jobs_path = (os.path.join(str(tmp_dir), f) for f in ("in.npz", "out.npz", "jobs.json"))
-    np.savez(inp, **arrays)
-    with open(jobs_path, "w") as f:
-        json.dump(jobs, f)
-    env = dict(os.environ, XLA_FLAGS="--xla_cpu_max_isa=SSE4_2", PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
-    r = subprocess.run(
-        [sys.executable, os.path.join(REPO, "tests", "_jax_grad_ref.py"), inp, out, jobs_path],
-        env=env, cwd=REPO, capture_output=True, text=True, timeout=900,
-    )
-    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
-    return dict(np.load(out))
+    script = os.path.join(REPO, "tests", "_jax_grad_ref.py")
+    scenes = {f"{j['scene']}@{j['w']}x{j['h']}": jax_grad_scene(j["scene"], j["w"] / j["h"]) for j in jobs}
+    inputs = dict(jobs=json.dumps(jobs, sort_keys=True), arrays=arrays, scenes=scenes, source=source(script))
+
+    def compute():
+        inp, out, jobs_path = (os.path.join(str(tmp_dir), f) for f in ("in.npz", "out.npz", "jobs.json"))
+        np.savez(inp, **arrays)
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        r = subprocess.run([sys.executable, script, inp, out, jobs_path], env=_ref_env(), cwd=REPO,
+                           capture_output=True, text=True, timeout=REF_TIMEOUT)
+        assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+        return dict(np.load(out))
+
+    return cached("_jax_grad_ref", inputs, compute, xla_flags=SSE42)
+
+
+def jax_script_reference(tmp_dir, script, cases, *helpers):
+    """``tests/<script> OUT.npz <case>`` for each of ``cases``, a reference
+    script that builds its own scene and rays from seeds, each case in its
+    own SSE4.2 subprocess, all at once -> {case: {name: array}}. The key
+    holds the case and the source of the script and of the ``helpers``
+    (files of ``tests/``) it imports."""
+    import subprocess
+    import sys
+
+    path = os.path.join(REPO, "tests", script)
+    text = source(path, *(os.path.join(REPO, "tests", h) for h in helpers))
+    found = {c: lookup(script, dict(case=c, source=text), SSE42) for c in cases}
+    procs = {
+        c: subprocess.Popen([sys.executable, path, os.path.join(str(tmp_dir), f"{c}.npz"), c], env=_ref_env(),
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c, (_, out) in found.items() if out is None
+    }
+    try:
+        for c, p in procs.items():
+            log, _ = p.communicate(timeout=REF_TIMEOUT)
+            assert p.returncode == 0, log[-3000:]
+            found[c] = (found[c][0], keep(found[c][0], dict(np.load(os.path.join(str(tmp_dir), f"{c}.npz")))))
+    finally:
+        for p in procs.values():
+            p.kill()
+    return {c: out for c, (_, out) in found.items()}
 
 
 def jax_kernel_reference(tmp_dir, kind, cases, w, h, spp, key, arrays=None, **job):
