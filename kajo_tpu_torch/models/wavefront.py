@@ -19,7 +19,19 @@ walk the image in ``TILE_TS``-square screen tiles, so the rays of one CTA
 are neighbours and cull the same sphere blocks.
 
 The JAX ``lax.while_loop`` is a Python loop here; its ``any()`` test reads
-one flag back from the device per iteration.
+one flag back from the device per iteration. On a CUDA device
+:func:`render_passes_fast` captures the loop's body as a CUDA graph once
+(again only when the scene's layout, the sizes or the config change) and
+replays it at each iteration (:class:`_GraphedLoop`): the same kernels,
+one launch from the host in place of several hundred.
+
+Spans and counters of the loop: ``torch.profiler`` ranges
+``kajo.wavefront.prepare`` (the scene's preparation in
+:func:`render_passes_fast`), ``kajo.wavefront.iteration`` (each run of the
+loop's body) and ``kajo.wavefront.flag`` (each read of the loop's flag);
+the module counters ``iterations`` and ``flag_reads`` count those bodies
+and reads, and ``prepare_seconds`` sums the host's seconds inside that
+preparation, as ``ops/stream_trace.py``'s ``nearest_launches`` counts K5.
 
 The differentiable budget engine (``render_lanes_budget``,
 ``render_pass_budget``) runs the same body a fixed
@@ -38,11 +50,15 @@ reordering, ray sorting) are not ported.
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import bsdf, lights, sampling
+from ..ops import bsdf, lights, sampling, stream_trace
 from ..ops.geometry import PreparedScene, generate_rays, light_visible, prepare_scene, trace
 from ..ops.rng import as_key, pass_seed, uniforms4
 from ..scene.types import Scene
@@ -55,6 +71,10 @@ LANE_MULT = 4
 TILE_TS = 64
 # iterations of the budget engine per effective sample
 BUDGET_ITERS_PER_SAMPLE = 4
+
+iterations = 0  # runs of the loop's body
+flag_reads = 0  # reads of the loop's flag back from the device
+prepare_seconds = 0.0  # host seconds preparing the scene in render_passes_fast
 
 
 def tiled_pixel_order(width: int, height: int) -> np.ndarray:
@@ -233,9 +253,12 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
     ncalls = -(-n_uni // 4)
 
     def cond(state):
-        return bool((state["sample"] < s_hi).any())
+        global flag_reads
+        with record_function("kajo.wavefront.flag"):
+            flag_reads += 1
+            return bool((state["sample"] < s_hi).any())
 
-    def body(state):
+    def step(state):
         active = state["sample"] < s_hi
         sample = state["sample"]
         depth = state["depth"]
@@ -372,7 +395,21 @@ def _make_loop(prep: PreparedScene, lane, seed, width, height, eff_spp, grid, co
             rays=state["rays"] + active.sum() + scatter.sum() * nee_rays,
         )
 
-    return state, cond, body
+    return state, cond, _counted(step)
+
+
+def _counted(step):
+    """``step`` as the loop's body: each run counted in ``iterations`` and
+    spanned ``kajo.wavefront.iteration``; ``body.step`` is ``step``."""
+
+    def body(state):
+        global iterations
+        with record_function("kajo.wavefront.iteration"):
+            iterations += 1
+            return step(state)
+
+    body.step = step
+    return body
 
 
 def render_lanes(prep, lane, seed, width, height, eff_spp, grid, config, pix=None, sample_lo=None, sample_hi=None,
@@ -412,15 +449,148 @@ def lane_layout(prep: PreparedScene, width: int, height: int, eff: int):
     return lane, pixmap[lane % n], s_lo, s_lo + k, pixmap
 
 
-def _pass(prep: PreparedScene, seed: int, width: int, height: int, spp: int, config: RenderConfig):
-    """One wavefront pass of a prepared scene -> ([H, W, 4], iterations, rays)."""
+# device index -> the last graphed loop, reused while the scene's
+# preparation keeps its layout and the sizes and config stay
+_LOOPS = {}
+
+
+def _fields(obj, prefix=""):
+    """(name, value) of each field of a prepared scene, the nested
+    dataclasses' fields under dotted names."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _fields(v, f"{prefix}{f.name}.")
+        else:
+            yield prefix + f.name, v
+
+
+def _cloned(obj):
+    """A prepared scene with a copy of each tensor of its own."""
+    return dataclasses.replace(obj, **{
+        f.name: _cloned(v) if dataclasses.is_dataclass(v) else v.clone() if isinstance(v, torch.Tensor) else v
+        for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)
+    })
+
+
+def _layout(prep: PreparedScene) -> tuple:
+    """What a graph captured on ``prep`` holds fixed: each tensor's shape,
+    dtype and device, and every other field's value."""
+    return tuple((k, (v.shape, v.dtype, v.device) if isinstance(v, torch.Tensor) else v) for k, v in _fields(prep))
+
+
+def _graphed_loop(prep: PreparedScene, width: int, height: int, spp: int, config: RenderConfig):
+    """The device's :class:`_GraphedLoop` for ``prep``'s layout, the sizes
+    and the config: the last one, its preparation refilled from ``prep``,
+    where all of those match, else a new one."""
+    key = (_layout(prep), width, height, spp, config)
+    dev = prep.background.device.index
+    last = _LOOPS.get(dev)
+    if last is not None and last.key == key:
+        for (_, mine), (_, new) in zip(_fields(last.prep), _fields(prep)):
+            if isinstance(mine, torch.Tensor):
+                mine.copy_(new)
+        return last
+    _LOOPS[dev] = _GraphedLoop(prep, width, height, spp, config, key, last)
+    return _LOOPS[dev]
+
+
+class _GraphedLoop:
+    """The wavefront's loop on a CUDA device, the body captured once as a
+    CUDA graph and replayed at each iteration.
+
+    The body is several hundred small kernels over every lane; launched one
+    by one from Python, they kept the host the slower side (at 512x384, 4
+    spp, 786,432 lanes, the card idled two thirds of a batch). The first
+    iteration runs eagerly, which loads every kernel, and the capture
+    follows. The graph reads the preparation (the loop's own copy, which
+    each batch refills), the lane layout, the pass seed and the loop's
+    state from fixed buffers and writes the state back into them, so a pass
+    refills the seed and the state and replays until the flag, read as
+    before, says every lane is done. The kernels and their inputs are the
+    eager loop's, and so are the bits. A replay counts as a body in
+    ``iterations`` and adds its K5/K6 runs to ``stream_trace``'s counters."""
+
+    def __init__(self, prep: PreparedScene, width: int, height: int, spp: int, config: RenderConfig, key: tuple,
+                 last: "_GraphedLoop" = None):
+        self.prep, self.width, self.height, self.config, self.key = _cloned(prep), width, height, config, key
+        self.grid = max(int(spp**0.5), 1)
+        self.layout = lane_layout(self.prep, width, height, self.grid * self.grid)
+        self.seed = _seed_tensor(0, prep.background.device)
+        self.graph = self.buffers = None
+        # the last loop's graph, alive until this capture joins its memory
+        # pool (a pool lives while a graph holds it)
+        self.last_graph = None if last is None else last.graph
+        self.launches = (0, 0)  # K5 and K6 runs of a replay
+        self.body = _counted(self._replay)
+
+    def __call__(self, seed: int):
+        """The loop of the pass seeded ``seed`` -> (radiance sums [N, 3],
+        iterations, rays traced as a 0-d tensor)."""
+        lane, pix, s_lo, s_hi, _ = self.layout
+        self.seed.fill_(seed & 0xFFFFFFFF)
+        state, cond, body = _make_loop(self.prep, lane, self.seed, self.width, self.height, self.grid**2, self.grid,
+                                       self.config, pix, s_lo, s_hi)
+        if self.graph is None:
+            if not cond(state):
+                return state["radiance"], state["iters"], state["rays"]
+            state = body(state)
+            self._capture(body.step, state)
+        else:
+            for k, buf in self.buffers.items():
+                buf.copy_(state[k])
+        state = {**self.buffers, "iters": state["iters"]}
+        while cond(state):
+            state = self.body(state)
+        return state["radiance"].clone(), state["iters"], state["rays"].clone()
+
+    def _capture(self, step, state):
+        """Capture ``step`` on ``state``'s tensors, which become the buffers."""
+        dev = self.seed.device
+        self.buffers = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+        before = (stream_trace.nearest_launches, stream_trace.occluded_launches)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=None if self.last_graph is None else self.last_graph.pool())
+            try:
+                out = step({**self.buffers, "iters": 0})
+                for k, buf in self.buffers.items():
+                    buf.copy_(out[k])
+                del out  # freed inside the capture, so a later capture reuses its memory
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # the capture ran no kernel: its launches count at each replay
+        self.launches = (stream_trace.nearest_launches - before[0], stream_trace.occluded_launches - before[1])
+        stream_trace.nearest_launches, stream_trace.occluded_launches = before
+        self.graph, self.last_graph = graph, None
+
+    def _replay(self, state):
+        self.graph.replay()
+        stream_trace.nearest_launches += self.launches[0]
+        stream_trace.occluded_launches += self.launches[1]
+        return {**self.buffers, "iters": state["iters"] + 1}
+
+
+def _pass(prep: PreparedScene, seed: int, width: int, height: int, spp: int, config: RenderConfig,
+          loop: _GraphedLoop = None):
+    """One wavefront pass of a prepared scene -> ([H, W, 4], iterations,
+    rays). ``loop``: a :class:`_GraphedLoop` of the same scene, sizes and
+    config, which runs the loop in place of :func:`render_lanes`."""
     dev = prep.background.device
     grid = max(int(spp**0.5), 1)
     eff = grid * grid
     divisor = float(spp if config.kajo_spp_quirk else eff)
     n = width * height
-    lane, pix, s_lo, s_hi, pixmap = lane_layout(prep, width, height, eff)
-    rgb, iters, rays = render_lanes(prep, lane, _seed_tensor(seed, dev), width, height, eff, grid, config, pix, s_lo, s_hi)
+    if loop is None:
+        lane, pix, s_lo, s_hi, pixmap = lane_layout(prep, width, height, eff)
+        rgb, iters, rays = render_lanes(prep, lane, _seed_tensor(seed, dev), width, height, eff, grid, config, pix,
+                                        s_lo, s_hi)
+    else:
+        pixmap = loop.layout[4]
+        rgb, iters, rays = loop(seed)
     if pixmap is not None:
         # sum a pixel's lanes in a fixed order (no atomics), then place them
         rgb = rgb.reshape(-1, n, 3).sum(0)
@@ -439,11 +609,20 @@ def render_pass_fast(scene: Scene, seed: int, width: int, height: int, spp: int,
 def render_passes_fast(scene: Scene, seed: int, pass_offset: int, width: int, height: int, spp: int,
                        n_passes: int, config: RenderConfig = RenderConfig()) -> torch.Tensor:
     """Sum of ``n_passes`` passes on the scene's device, the scene prepared
-    once; pass i uses the seed ``pass_seed(seed, pass_offset + i)``."""
-    prep = prepare_scene(scene)
+    once; pass i uses the seed ``pass_seed(seed, pass_offset + i)``. On a
+    CUDA device, where no tensor of the scene needs a gradient, the loop's
+    body runs as a CUDA graph (:func:`_graphed_loop`)."""
+    global prepare_seconds
+    t0 = time.perf_counter()
+    with record_function("kajo.wavefront.prepare"):
+        prep = prepare_scene(scene)
+    prepare_seconds += time.perf_counter() - t0
     total = torch.zeros((height, width, 4), dtype=torch.float32, device=scene.device)
+    graphed = total.device.type == "cuda" and not any(
+        isinstance(v, torch.Tensor) and v.requires_grad for _, v in _fields(prep))
+    loop = _graphed_loop(prep, width, height, spp, config) if graphed else None
     for i in range(n_passes):
-        total += _pass(prep, pass_seed(seed, pass_offset + i), width, height, spp, config)[0]
+        total += _pass(prep, pass_seed(seed, pass_offset + i), width, height, spp, config, loop)[0]
     return total
 
 

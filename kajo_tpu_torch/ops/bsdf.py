@@ -61,10 +61,13 @@ def _phong_frame(view, normal):
     """Frame about the reflection vector, built from ẑ; from ŷ where the
     reflection is parallel to ẑ."""
     r = reflect(view, normal)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=r.dtype, device=r.device).expand(r.shape)
+    # the axes filled on the device: no copy from the host (a CUDA graph
+    # captures the wavefront's body)
+    axes = torch.eye(3, dtype=r.dtype, device=r.device)
+    z = axes[2].expand(r.shape)
     u = torch.linalg.cross(z, r)
     degenerate = _dot(u, u) < 1e-12
-    y = torch.tensor([0.0, 1.0, 0.0], dtype=r.dtype, device=r.device).expand(r.shape)
+    y = axes[1].expand(r.shape)
     u = safe_normalize(torch.where(degenerate, torch.linalg.cross(y, r), u))
     v = torch.linalg.cross(u, r)
     return r, u, v

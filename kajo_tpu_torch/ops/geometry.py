@@ -219,7 +219,10 @@ def _sphere_tangent(n):
     t = torch.where((n[..., 0] == smallest)[..., None], tx, torch.where((n[..., 1] == smallest)[..., None], ty, tz))
     norm2 = torch.sum(t * t, -1, keepdim=True)
     flat = (n[..., 1].abs() < 0.9)[..., None]
-    up = torch.where(flat, n.new_tensor([0.0, 1.0, 0.0]), n.new_tensor([1.0, 0.0, 0.0]))
+    # the axes filled on the device: no copy from the host (a CUDA graph
+    # captures the wavefront's body)
+    axes = torch.eye(3, dtype=n.dtype, device=n.device)
+    up = torch.where(flat, axes[1], axes[0])
     t = torch.where(norm2 < 1e-12, torch.linalg.cross(n, up.expand(n.shape)), t)
     return safe_normalize(t)
 
